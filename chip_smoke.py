@@ -4,13 +4,25 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints one line and ends with torch.cuda.synchronize()):
   1. device: the card's name and power limit;
-  2. build: compile the tile_histogram CUDA kernel from csrc/;
-  3. kernel against its plain PyTorch version, exact equality, and both
-     times at the main-path shape;
-  4. the slice: ZlibCodec.compress of an ~8.5 MB corpus on the card, checked
-     by zlib.decompress, with the kernel's launch count;
+  2. build: start nvcc on every CUDA source of csrc/ at once, wait for all;
+  3. tile_histogram against its plain PyTorch version, exact equality, and
+     both times at the main-path shape;
+  4. the encode slice: ZlibCodec.compress of an ~8.5 MB corpus on the card,
+     checked by zlib.decompress, with the kernel's launch count;
   5. encode_shard on the card against the port on the CPU, bit for bit, for
-     the first and the last shard, and the whole stream of phase 4.
+     the first and the last shard, and the whole stream of phase 4;
+  6. build: decode_symbols.cu (compiled in phase 2) loaded;
+  7. decode_symbols and lut_gather against their plain versions, exactly,
+     on the corpus's first and last shards and on the whole flat batch, and
+     the median of 25 timed launches of each kernel and plain version;
+  8. the decode slice: compress_stream with an index sink, then
+     decode_blocks_batch over all shards in one flat call (adler32 per
+     shard, bytes, verified-decode MB/s, launch counts, phase times),
+     decompress_indexed of the stream with the encoder's index, and of a
+     foreign zlib-9 stream through build_index;
+  9. strictness on the card and GPU against CPU: seeded bit flips flagged
+     or rejected with the CPU's ok and bad lanes, decompress_indexed
+     raising on each, the declared-window violation, clean shards equal.
 Any failure raises, so the script exits non-zero. The last line is the
 JSON result {"ok": true, "device": {...}}.
 """
@@ -30,8 +42,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SHAPES = [(32, 32768, 286), (32, 32768, 30), (17, 32768, 286), (1, 32768, 286)]
 CORPUS_BYTES = 8_500_000
+FOREIGN_BYTES = 4_000_000
 PHASE5_KEYS = ("total_bits", "btype", "block_bits", "sub_bit", "sub_out",
                "sub_blk")
+IDX_KEYS = ("block_bit_base", "block_out_start", "btype", "n_blocks",
+            "sub_bit", "sub_out", "sub_blk")
+N_MUTATIONS = 6
+WINDOW = 32768
 
 
 def cuda_ms(fn, reps: int = 25) -> float:
@@ -59,6 +76,8 @@ def main() -> int:
     from deflate_compression_tpu_torch.corpus import build_corpus
     from deflate_compression_tpu_torch.format.deflate import encode_shard
     from deflate_compression_tpu_torch.models.codec import ZlibCodec
+    from deflate_compression_tpu_torch.ops import cuda_build
+    from deflate_compression_tpu_torch.ops import decode_symbols as DS
     from deflate_compression_tpu_torch.ops import histogram as H
 
     dev = torch.device("cuda")
@@ -74,9 +93,14 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    lib = H.build()
-    print(f"phase 2 build: tile_histogram.cu -> {lib.name} "
-          f"in {time.perf_counter() - t0:.2f} s")
+    builds = [cuda_build.Build(src) for src in (H.SOURCE, DS.SOURCE)]
+    lib = builds[0].wait()
+    t_hist = time.perf_counter() - t0
+    ds_lib = builds[1].wait()
+    t_ds = time.perf_counter() - t0
+    print(f"phase 2 build: nvcc started on tile_histogram.cu and "
+          f"decode_symbols.cu together; {lib.name} in {t_hist:.2f} s, "
+          f"{ds_lib.name} done {t_ds:.2f} s after the start")
     torch.cuda.synchronize()
 
     # ------------------------------------------ 3. kernel vs plain version
@@ -163,17 +187,287 @@ def main() -> int:
           f"{len(blob)}-byte zlib stream identical")
     torch.cuda.synchronize()
 
+    decode = decode_phases(raw, cfg, blob, dev, ds_lib.name, t_ds)
+
     k286, p286 = times[286]
     print(json.dumps({"kernels": [{
         "name": "tile_histogram", "route": "cuda",
         "source": "deflate_compression_tpu_torch/csrc/tile_histogram.cu",
         "replaces": "deflate_compression_tpu/ops/histogram_pallas.py:74",
         "launches": launches, "max_abs_err": max_err,
-        "ms": k286, "plain_ms": p286}]}))
+        "ms": k286, "plain_ms": p286}, *decode]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_name: str,
+                  t_build: float):
+    """Phases 6-9: the decoder's kernels and the decode slice. Returns the
+    decode kernels' entries of the kernels JSON line."""
+    from deflate_compression_tpu.utils.errors import DeflateError
+    from deflate_compression_tpu_torch.core.checksum import adler32_torch
+    from deflate_compression_tpu_torch.corpus import repo_text
+    from deflate_compression_tpu_torch.decode import device_inflate as DI
+    from deflate_compression_tpu_torch.decode.index import (
+        build_index, decompress_indexed, index_from_shards)
+    from deflate_compression_tpu_torch.format.deflate import out_words
+    from deflate_compression_tpu_torch.models.codec import compress_stream
+    from deflate_compression_tpu_torch.ops import decode_symbols as DS
+
+    S = cfg.shard_size
+    # ----------------------------------------------------------- 6. build
+    DS._load()
+    print(f"phase 6 build: {lib_name} loaded; nvcc ran alongside "
+          f"tile_histogram.cu, both done {t_build:.2f} s after the start "
+          f"of phase 2")
+    torch.cuda.synchronize()
+
+    # ---------------------------------- 7. decode kernels vs plain versions
+    sink = []
+    pieces = list(compress_stream([raw], cfg, index_sink=sink, device=dev))
+    if b"".join(pieces) != blob:
+        raise AssertionError("compress_stream != ZlibCodec.compress")
+    body = b"".join(pieces[1:-1])
+    nsh = len(sink)
+    CW = out_words(S)
+    words = np.zeros((nsh, CW), np.int64)
+    for s_, part in enumerate(pieces[1:-1]):
+        padded = part + bytes(-len(part) % 4)
+        words[s_, :len(padded) // 4] = np.frombuffer(padded, "<u4")
+    stacked = {k: np.stack([st[k] for st, _, _ in sink]) for k in IDX_KEYS}
+    valid = [vl for _, _, vl in sink]
+    batch = [torch.from_numpy(words).to(dev)] + [
+        torch.from_numpy(stacked[k]).to(dev) for k in IDX_KEYS]
+
+    def shard_args(s_, w=None):
+        """decode_blocks arguments of shard s_ alone."""
+        return ([batch[0][s_] if w is None else w]
+                + [x[s_] for x in batch[1:]]
+                + [batch[-1].shape[1], valid[s_]])
+
+    def same(got, want, what):
+        err = 0
+        for g, x in zip(got, want):
+            if g.shape != x.shape:
+                raise AssertionError(f"{what}: shapes differ")
+            err = max(err, int((g.long() - x.long()).abs().max())
+                      if g.numel() else 0)
+        if err:
+            raise AssertionError(f"{what}: kernel != plain, max abs err "
+                                 f"{err}")
+        return err
+
+    max_err = 0
+    for s_ in (0, nsh - 1):
+        p = DI.plan(*shard_args(s_))
+        args = DI.phase_b_args(p, S, WINDOW)
+        max_err = max(max_err, same(DS.decode_symbols(*args),
+                                    DS.decode_symbols_ref(*args),
+                                    f"decode_symbols shard {s_}"))
+    flat = DI.flat_batch(*batch, valid, S)
+    pf = DI.plan(**flat)
+    bargs = DI.phase_b_args(pf, nsh * S, WINDOW)
+    got = DS.decode_symbols(*bargs)
+    max_err = max(max_err, same(got, DS.decode_symbols_ref(*bargs),
+                                "decode_symbols flat batch"))
+    n_lanes = int(pf.ln.llive.sum())
+    if not bool(got.done[pf.ln.llive].all()):
+        raise AssertionError("decode_symbols: a live lane did not finish")
+    ds_ms = cuda_ms(lambda: DS.decode_symbols(*bargs))
+    ds_plain = cuda_ms(lambda: DS.decode_symbols_ref(*bargs))
+
+    rng = np.random.default_rng(11)
+    tbl = torch.from_numpy(rng.integers(-2**31, 2**31, 2048)
+                           .astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 2048, 4096)
+                           .astype(np.int32)).to(dev)
+    lg_err = same([DS.lut_gather(tbl, idx)], [DS.lut_gather_ref(tbl, idx)],
+                  "lut_gather (2048, 4096)")
+    probe_ms = cuda_ms(lambda: DS.lut_gather(tbl, idx))
+    probe_plain = cuda_ms(lambda: DS.lut_gather_ref(tbl, idx))
+    ftbl = DI.block_flags(pf.a)
+    fidx = flat["sub_blk"].clamp(0, pf.a.bbad.shape[0] - 1).to(torch.int32)
+    lg_err = max(lg_err, same([DS.lut_gather(ftbl, fidx)],
+                              [DS.lut_gather_ref(ftbl, fidx)],
+                              "lut_gather (block flags)"))
+    lg_ms = cuda_ms(lambda: DS.lut_gather(ftbl, fidx))
+    lg_plain = cuda_ms(lambda: DS.lut_gather_ref(ftbl, fidx))
+    print(f"phase 7 decode kernels: tolerance 0 (exact); decode_symbols == "
+          f"plain on shards 0 and {nsh - 1} and the flat batch of {nsh} "
+          f"shards ({n_lanes} live lanes): kernel {ds_ms:.4f} ms, plain "
+          f"{ds_plain:.4f} ms; lut_gather == tbl[idx] at (2048, 4096): "
+          f"kernel {probe_ms:.4f} ms, plain {probe_plain:.4f} ms; at the "
+          f"block-flag lookup ({ftbl.shape[0]}, {fidx.shape[0]}): kernel "
+          f"{lg_ms:.4f} ms, plain {lg_plain:.4f} ms")
+    torch.cuda.synchronize()
+
+    # ------------------------------------------------- 8. the decode slice
+    want_adler = [zlib.adler32(raw[s_ * S:(s_ + 1) * S]) for s_ in range(nsh)]
+
+    def verified_decode():
+        r = DI.decode_blocks_batch(*batch, valid, S)
+        ads = torch.stack([adler32_torch(r["out"][s_], valid[s_])
+                           for s_ in range(nsh)]).tolist()
+        return r, bool(r["ok"]), ads
+
+    verified_decode()
+    torch.cuda.synchronize()
+    DS.decode_symbols.launches = DS.lut_gather.launches = 0
+    t0 = time.perf_counter()
+    res, ok, ads = verified_decode()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ds_launches = DS.decode_symbols.launches
+    lg_launches = DS.lut_gather.launches
+    if ds_launches < 1 or lg_launches < 1:
+        raise AssertionError(f"decode path launched decode_symbols "
+                             f"{ds_launches} and lut_gather {lg_launches} "
+                             f"times")
+    if not ok or ads != want_adler:
+        raise AssertionError(f"batch decode: ok {ok}, adler {ads} != "
+                             f"{want_adler}")
+    out_host = res["out"].cpu().numpy()
+    for s_ in range(nsh):
+        if out_host[s_, :valid[s_]].tobytes() != raw[s_ * S:(s_ + 1) * S]:
+            raise AssertionError(f"batch decode: shard {s_} bytes differ")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    pt = DI.plan(**flat)
+    ev[1].record()
+    bt = DI.phase_b(pt, nsh * S, WINDOW)
+    ev[2].record()
+    rt = DI.phase_c(pt, bt, nsh * S)
+    ev[3].record()
+    torch.cuda.synchronize()
+    ph = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    in_shard = torch.arange(S, device=dev) < torch.tensor(
+        valid, device=dev).unsqueeze(1)
+    if not bool(rt["ok"]) or not torch.equal(
+            torch.where(in_shard, rt["out"].view(nsh, S), 0), res["out"]):
+        raise AssertionError("phase-by-phase decode differs")
+
+    index = index_from_shards(*zip(*sink))
+    t0 = time.perf_counter()
+    got_raw = decompress_indexed(body, index, expected_adler=zlib.adler32(raw),
+                                 device=dev)
+    t_idx = time.perf_counter() - t0
+    if got_raw != raw:
+        raise AssertionError("decompress_indexed != input")
+
+    fraw = raw[:FOREIGN_BYTES]
+    z9 = zlib.compress(fraw, 9)
+    body9 = z9[2:-4]
+    from deflate_compression_tpu import native_bridge
+    native = native_bridge.available()
+    t0 = time.perf_counter()
+    idx9 = build_index(body9)
+    t_bi = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got9 = decompress_indexed(body9, idx9, expected_adler=zlib.adler32(fraw),
+                              device=dev)
+    t_f = time.perf_counter() - t0
+    if got9 != fraw:
+        raise AssertionError("foreign zlib-9 stream: decompress_indexed != "
+                             "input")
+    t0 = time.perf_counter()
+    zlib.decompress(blob)
+    t_z = time.perf_counter() - t0
+    print(f"phase 8 decode slice: {len(raw)} bytes, {nsh} shards, "
+          f"{n_lanes} lanes in one flat decode_blocks_batch: verified "
+          f"decode {len(raw) / dt / 1e6:.3f} MB/s ({dt:.3f} s, adler32 per "
+          f"shard OK, bytes OK), decode_symbols launches {ds_launches}, "
+          f"lut_gather launches {lg_launches}; phases by CUDA events: A "
+          f"{ph[0]:.2f} ms, B {ph[1]:.2f} ms, C {ph[2]:.2f} ms; "
+          f"decompress_indexed with the encoder's index "
+          f"{len(raw) / t_idx / 1e6:.3f} MB/s ({index.n_subs} entries); "
+          f"foreign zlib-9 {len(fraw)} bytes: build_index "
+          f"({'native' if native else 'python'}) {t_bi:.3f} s, "
+          f"decompress_indexed {len(fraw) / t_f / 1e6:.3f} MB/s, OK; host "
+          f"zlib inflate {len(raw) / t_z / 1e6:.1f} MB/s")
+    torch.cuda.synchronize()
+
+    # ------------------------------------------- 9. strictness, GPU vs CPU
+    text_end = min(len(repo_text()), S) - 4096
+    sb0, so0, sk0 = (stacked[k][0] for k in ("sub_bit", "sub_out",
+                                             "sub_blk"))
+    bt0 = stacked["btype"][0]
+    cand = np.flatnonzero((sk0 >= 0) & (so0 < text_end)
+                          & np.isin(bt0[np.maximum(sk0, 0)], (1, 2)))
+    picks = np.random.default_rng(1234).choice(cand, N_MUTATIONS,
+                                               replace=False)
+    cpu_args = [a.cpu() for a in batch]
+    n_bad = 0
+    for lane in picks:
+        bit = int(sb0[lane])
+        wm = batch[0][0].clone()
+        wm[bit >> 5] ^= 1 << (bit & 31)
+        g = DI.decode_blocks(*shard_args(0, wm), S)
+        c = DI.decode_blocks(wm.cpu(), *[x[0] for x in cpu_args[1:]],
+                             cpu_args[-1].shape[1], valid[0], S)
+        if bool(g["ok"]) != bool(c["ok"]) or not torch.equal(
+                g["bad_lanes"].cpu(), c["bad_lanes"]):
+            raise AssertionError(f"mutation at bit {bit}: GPU and CPU "
+                                 f"differ in ok or bad lanes")
+        if bool(g["ok"]):
+            o = g["out"][:valid[0]]
+            if (o.cpu().numpy().tobytes() == raw[:S]
+                    or int(adler32_torch(o, valid[0])) == want_adler[0]):
+                raise AssertionError(f"mutation at bit {bit} not rejected")
+        else:
+            n_bad += 1
+        mb = bytearray(body)
+        mb[bit >> 3] ^= 1 << (bit & 7)
+        try:
+            decompress_indexed(bytes(mb), index,
+                               expected_adler=zlib.adler32(raw), device=dev)
+        except DeflateError:
+            pass
+        else:
+            raise AssertionError(f"decompress_indexed accepted the "
+                                 f"mutation at bit {bit}")
+
+    pat = b"The quick brown fox jumps over the lazy dog 0123456789!"
+    wdata = pat * 20 + bytes(np.random.default_rng(3).integers(
+        0, 256, 2000, dtype=np.uint8)) + pat * 20
+    wbody = zlib.compress(wdata, 9)[2:-4]
+    widx = build_index(wbody)
+    try:
+        decompress_indexed(wbody, widx, max_dist=512, device=dev)
+    except DeflateError:
+        pass
+    else:
+        raise AssertionError("window violation decoded at max_dist=512")
+    if decompress_indexed(wbody, widx, max_dist=WINDOW, device=dev) != wdata:
+        raise AssertionError("window stream at max_dist=32768 differs")
+
+    for s_ in (0, nsh - 1):
+        c = DI.decode_blocks(*[x[s_] for x in cpu_args],
+                             cpu_args[-1].shape[1], valid[s_], S)
+        if not (bool(c["ok"]) and torch.equal(c["out"].cpu(),
+                                              res["out"][s_].cpu())
+                and torch.equal(c["bad_lanes"],
+                                res["bad_lanes"][s_].cpu())):
+            raise AssertionError(f"clean shard {s_}: GPU != CPU")
+    print(f"phase 9 strictness: {N_MUTATIONS} seeded bit flips at lane "
+          f"starts of shard 0: {n_bad} flagged bad, the rest rejected by "
+          f"adler32, ok and bad lanes equal on GPU and CPU, "
+          f"decompress_indexed raised DeflateError on each; window "
+          f"violation raised at max_dist=512 and decoded at 32768; clean "
+          f"shards 0 and {nsh - 1}: GPU == CPU (out, ok, bad lanes)")
+    torch.cuda.synchronize()
+
+    return [{"name": "decode_symbols", "route": "cuda",
+             "source": "deflate_compression_tpu_torch/csrc/decode_symbols.cu",
+             "replaces": "tools/probe_pallas_r5.py:35",
+             "launches": ds_launches, "max_abs_err": max_err,
+             "ms": ds_ms, "plain_ms": ds_plain},
+            {"name": "lut_gather", "route": "cuda",
+             "source": "deflate_compression_tpu_torch/csrc/decode_symbols.cu",
+             "replaces": "tools/probe_pallas_r5.py:35",
+             "launches": lg_launches, "max_abs_err": lg_err,
+             "ms": lg_ms, "plain_ms": lg_plain}]
 
 
 if __name__ == "__main__":

@@ -1,38 +1,59 @@
-"""deflate-compression-tpu, ported to PyTorch: the shard encoder on a CUDA card.
+"""deflate-compression-tpu, ported to PyTorch: the shard encoder and the
+indexed decoder on a CUDA card.
 
 This package is the PyTorch counterpart of `deflate_compression_tpu` (the
 JAX package, which stays the reference). Module names mirror the JAX
-package so each counterpart is easy to find:
+package so each counterpart is easy to find (the decoder's
+`decode/tpu_inflate.py` is `decode/device_inflate.py` here):
 
-    from deflate_compression_tpu_torch import ZlibCodec, CodecConfig
+    from deflate_compression_tpu_torch import (
+        CodecConfig, ZlibCodec, compress_stream, decompress_indexed,
+        index_from_shards)
     blob = ZlibCodec(CodecConfig(), device="cuda").compress(data)
 
-Parameters carried across: the encoder has no weights and no random state.
+    sink = []
+    blob = b"".join(compress_stream([data], CodecConfig(), index_sink=sink))
+    index = index_from_shards(*zip(*sink))
+    assert decompress_indexed(blob[2:-4], index) == data
+
+Parameters carried across: the codec has no weights and no random state.
 Its only state is the `CodecConfig` object and the fixed RFC 1951 tables,
 and both are taken unchanged from the JAX package
 (`deflate_compression_tpu.utils.config` and `.format.constants`, whose
-import chains are free of JAX). Nothing else is imported from there.
+import chains are free of JAX), as are its error types; `build_index` calls
+the repository's native C++ index pass where it builds. The decoder's state
+is the stream words and the decode index, and the .dcx index bytes are the
+JAX package's.
 
-Every device stage is plain PyTorch on int64 tensors (u32 values carried
-in int64, see `core/u32.py`), except the per-tile symbol histogram, which
-is a hand-written CUDA kernel (`csrc/tile_histogram.cu`, bound in
-`ops/histogram.py`). Runs on `device="cpu"` take each kernel's plain
-PyTorch version; a CUDA tensor always goes through the kernel.
+Device stages are plain PyTorch on int64 tensors (u32 values carried in
+int64, see `core/u32.py`), except the hand-written CUDA kernels in `csrc/`:
+the per-tile symbol histogram of the encoder (`ops/histogram.py`) and the
+decoder's phase-B symbol decode and LUT gather (`ops/decode_symbols.py`).
+Runs on `device="cpu"` take each kernel's plain PyTorch version; a CUDA
+tensor always goes through the kernel.
 
 Covered: `encode_shard` for shards up to 1 MB, the raw and zlib codecs'
-`compress`. Not yet ported: decompress, gzip, streaming, self-check and
-shards over 1 MB.
+`compress`, `compress_stream` / `compress_file` with the encoder's index,
+and the indexed device decoder (`decode_blocks`, `decode_blocks_batch`,
+`decompress_indexed`, `build_index`). Not yet ported: the codecs' host
+`decompress`, gzip, the self-check, the CLI and shards over 1 MB.
 """
 
 __all__ = ["CodecConfig", "CompressStats", "DeflateCodec", "ZlibCodec",
-           "make_codec"]
+           "make_codec", "compress_stream", "compress_file", "DecodeIndex",
+           "build_index", "index_from_shards", "decompress_indexed"]
 
 
 def __getattr__(name):
     if name == "CodecConfig":
         from deflate_compression_tpu.utils.config import CodecConfig
         return CodecConfig
-    if name in ("CompressStats", "DeflateCodec", "ZlibCodec", "make_codec"):
+    if name in ("CompressStats", "DeflateCodec", "ZlibCodec", "make_codec",
+                "compress_stream", "compress_file"):
         from .models import codec
         return getattr(codec, name)
+    if name in ("DecodeIndex", "build_index", "index_from_shards",
+                "decompress_indexed"):
+        from .decode import index
+        return getattr(index, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,7 +3,8 @@
 Serialization is an array of items (value, nbits, absolute bit offset)
 packed into LSB-first 32-bit words. Items occupy disjoint bits, so an
 integer `index_add_` of their word contributions equals their OR. Words
-are int64 tensors holding u32 values (core/u32.py).
+are int64 tensors holding u32 values (core/u32.py). `BitReader` is the
+host-side reader of the decode-index pass, copied from the JAX module.
 """
 from __future__ import annotations
 
@@ -88,3 +89,40 @@ def words_to_bytes(words: np.ndarray, total_bits: int) -> bytes:
     if b.size < nbytes:
         raise ValueError("word buffer too small for total_bits")
     return b[:nbytes].tobytes()
+
+
+class BitReader:
+    """Host-side LSB-first bit reader over a bytes-like object (copy of the
+    JAX package's core/bits.py BitReader)."""
+
+    __slots__ = ("data", "pos")  # pos in bits
+
+    def __init__(self, data: bytes, bit_pos: int = 0):
+        self.data = data
+        self.pos = bit_pos
+
+    def read(self, n: int) -> int:
+        """Read n bits LSB-first, advancing the cursor."""
+        pos = self.pos
+        end = pos + n
+        if (end + 7) // 8 > len(self.data):
+            raise EOFError("bit stream exhausted")
+        byte0 = pos >> 3
+        nbytes = ((end + 7) >> 3) - byte0
+        chunk = int.from_bytes(self.data[byte0:byte0 + nbytes], "little")
+        self.pos = end
+        return (chunk >> (pos & 7)) & ((1 << n) - 1)
+
+    def peek(self, n: int) -> int:
+        """Peek up to n bits without advancing (zero-padded past the end)."""
+        pos = self.pos
+        byte0 = pos >> 3
+        nbytes = ((pos + n + 7) >> 3) - byte0
+        chunk = int.from_bytes(self.data[byte0:byte0 + nbytes], "little")
+        return (chunk >> (pos & 7)) & ((1 << n) - 1)
+
+    def skip(self, n: int) -> None:
+        self.pos += n
+
+    def align_byte(self) -> None:
+        self.pos = (self.pos + 7) & ~7

@@ -153,3 +153,32 @@ def canonical_codes_np(lengths: np.ndarray, max_bits: int = 15) -> np.ndarray:
             codes[s] = next_code[l] + cnt[l]
             cnt[l] += 1
     return codes.astype(np.uint32)
+
+
+def decode_lut_np(lengths: np.ndarray, max_bits: int = 15):
+    """Host flat decode LUT (copy of the JAX package's decode_lut_np):
+    (sym_lut, len_lut) of size 2^max_bits, indexed by the next max_bits
+    stream bits (LSB-first peek). Unused patterns get len 0. Raises
+    ValueError on over-subscribed code lengths."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    size = 1 << max_bits
+    sym_lut = np.full(size, -1, dtype=np.int32)
+    len_lut = np.zeros(size, dtype=np.int32)
+    codes = canonical_codes_np(lengths, max_bits)
+    kraft = int(np.sum((lengths > 0)
+                       * (1 << (max_bits - np.minimum(lengths, max_bits)))))
+    if kraft > size:
+        raise ValueError("over-subscribed Huffman code lengths")
+    for s, l in enumerate(lengths):
+        l = int(l)
+        if l == 0:
+            continue
+        c = int(codes[s])
+        r = 0
+        for _ in range(l):
+            r = (r << 1) | (c & 1)
+            c >>= 1
+        idx = np.arange(r, size, 1 << l)
+        sym_lut[idx] = s
+        len_lut[idx] = l
+    return sym_lut, len_lut

@@ -25,3 +25,11 @@ def zlib_footer(adler: int) -> bytes:
 
 def zlib_wrap(deflate_stream: bytes, adler: int) -> bytes:
     return zlib_header() + deflate_stream + zlib_footer(adler)
+
+
+def container_header(container: str) -> bytes:
+    if container == "zlib":
+        return zlib_header()
+    if container == "raw":
+        return b""
+    raise ValueError(f"unknown container {container!r}")

@@ -4,22 +4,27 @@ deflate_compression_tpu/models/codec.py).
 `DeflateCodec` (raw RFC 1951) and `ZlibCodec` (RFC 1950 container) cut the
 input into `config.shard_size` shards, encode each with
 `format.deflate.encode_shard` on the codec's device, and join the
-substreams (every non-final shard ends byte-aligned). Not ported yet:
-decompress, the gzip codec, streaming and the self-check.
+substreams (every non-final shard ends byte-aligned). `compress_stream`
+and `compress_file` encode shard by shard with O(shard) memory and hand
+out the encoder's decode index (decode/index.py), which
+`decode.index.decompress_indexed` decodes on the device. Not ported yet:
+the codecs' host `decompress`, the gzip codec and the self-check.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from deflate_compression_tpu.utils.config import CodecConfig, DEFAULT_CONFIG
 from deflate_compression_tpu.utils.errors import DeflateError
 
 from ..core import checksum
 from ..device import pick_device
+from ..decode.index import INDEX_STAT_FIELDS
 from ..format import containers
-from ..format.deflate import encode_shards, shard_bytes
+from ..format.deflate import encode_shard, encode_shards, shard_bytes
 
 
 @dataclasses.dataclass
@@ -110,3 +115,100 @@ def make_codec(config: CodecConfig = DEFAULT_CONFIG,
         raise NotImplementedError("the gzip codec is not ported yet")
     return {"raw": DeflateCodec, "zlib": ZlibCodec}[config.container](
         config, device=device)
+
+
+# --------------------------------------------------------------- streaming
+def _iter_shard_chunks(src, size: int):
+    """Yield successive chunks of exactly `size` bytes (the last may be
+    short) from a file-like object or an iterable of bytes."""
+    if hasattr(src, "read"):
+        it = iter(lambda: src.read(size), b"")
+    else:
+        it = iter(src)
+    buf = bytearray()
+    for piece in it:
+        buf += piece
+        while len(buf) >= size:
+            yield bytes(buf[:size])
+            del buf[:size]
+    if buf:
+        yield bytes(buf)
+
+
+def compress_stream(src, config: CodecConfig = DEFAULT_CONFIG,
+                    index_sink: list | None = None, device=None):
+    """Streaming encode (the JAX package's compress_stream): yield the
+    container header, each shard's substream as soon as it is encoded, and
+    the footer, holding O(shard) memory. Every non-final shard ends
+    byte-aligned, so its bytes are final when yielded.
+
+    Args:
+      src: file-like object (.read) or iterable of bytes chunks.
+      config: container "raw" or "zlib" (gzip and self_check are not
+        ported yet and raise NotImplementedError), shard_size and the
+        encoder options.
+      index_sink: optional list receiving one (stats, total_bits, out_len)
+        tuple per shard, stats as host numpy arrays, ready for
+        decode.index.index_from_shards.
+      device: where shards are encoded (the CUDA card unless "cpu").
+    """
+    cfg = config
+    if cfg.container == "gzip":
+        raise NotImplementedError("the gzip codec is not ported yet")
+    if cfg.self_check:
+        raise NotImplementedError("self_check is not ported yet")
+    dev = pick_device(device)
+    yield containers.container_header(cfg.container)
+
+    def encode_one(part: bytes, s: int, final: bool) -> bytes:
+        buf = np.zeros(cfg.shard_size, dtype=np.uint8)
+        buf[:len(part)] = np.frombuffer(part, dtype=np.uint8)
+        r = encode_shard(torch.from_numpy(buf).to(dev), len(part), final,
+                         num_candidates=cfg.num_candidates, lazy=cfg.lazy,
+                         force_btype=cfg.force_btype)
+        if bool(r["sub_overflow"]):
+            raise DeflateError("E_INDEX",
+                               f"shard {s}: sub-entry capacity overflow")
+        if index_sink is not None:
+            stats = {k: r[k].cpu().numpy() for k in INDEX_STAT_FIELDS}
+            index_sink.append((stats, int(r["total_bits"]), len(part)))
+        return shard_bytes(r)
+
+    adler = 1
+    pending = None
+    s = 0
+    for chunk in _iter_shard_chunks(src, cfg.shard_size):
+        if pending is not None:
+            yield encode_one(pending, s, False)
+            s += 1
+        pending = chunk
+        if cfg.container == "zlib":
+            adler = checksum.adler32_np(np.frombuffer(chunk, np.uint8), adler)
+    if pending is not None:
+        yield encode_one(pending, s, True)
+    else:
+        yield b"\x01\x00\x00\xff\xff"      # empty input: final stored block
+    if cfg.container == "zlib":
+        yield containers.zlib_footer(adler)
+
+
+def compress_file(in_path: str, out_path: str,
+                  config: CodecConfig = DEFAULT_CONFIG,
+                  index_path: str | None = None, device=None) -> int:
+    """Stream-compress a file to a file with O(shard) memory; optionally
+    write the encoder's .dcx decode-index sidecar. Returns the compressed
+    byte count."""
+    from ..decode.index import index_from_shards
+    sink = [] if index_path else None
+    n = 0
+    with open(in_path, "rb") as fin, open(out_path, "wb") as fout:
+        for piece in compress_stream(fin, config, index_sink=sink,
+                                     device=device):
+            fout.write(piece)
+            n += len(piece)
+    if index_path:
+        idx = index_from_shards([t[0] for t in sink], [t[1] for t in sink],
+                                [t[2] for t in sink])
+        with open(index_path, "wb") as f:
+            f.write(idx.to_bytes())
+    return n

@@ -1,9 +1,8 @@
 """Per-tile symbol histogram: CUDA kernel wrapper and its plain version.
 
 Counterpart of deflate_compression_tpu/ops/histogram_pallas.py. The kernel
-(`csrc/tile_histogram.cu`) is compiled with nvcc for sm_90a into a shared
-library with a plain C interface at first use, into `build/` beside this
-package, and called through ctypes on PyTorch's current stream.
+(`csrc/tile_histogram.cu`) is built at first use by `ops/cuda_build.py` and
+called through ctypes on PyTorch's current stream.
 
 `tile_histogram` launches the kernel for a CUDA tensor and raises if it
 cannot; it takes the plain version `tile_histogram_ref` only for a tensor
@@ -12,67 +11,21 @@ that lies on the CPU. `tile_histogram.launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "tile_histogram.cu"
-BUILD_DIR = _PKG / "build"
+from . import cuda_build
+
+SOURCE = cuda_build.CSRC / "tile_histogram.cu"
 # a CTA's counters live in static-size dynamic shared memory (48 KB cap
 # without the opt-in attribute)
 MAX_CLASSES = 48 * 1024 // 4
 
-_lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: cannot build the tile_histogram "
-                       "CUDA kernel")
-
-
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; return its path.
-
-    The library name carries a hash of the source, so an edited source is
-    never served from a stale build."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
-    lib_path = BUILD_DIR / f"libtile_histogram_{tag}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path
-
 
 def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.tile_histogram_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return cuda_build.load(SOURCE, {"tile_histogram_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]})
 
 
 def _check(sym: torch.Tensor, num_classes: int) -> None:

@@ -6,12 +6,17 @@ without the repository's conftest (which imports JAX) as
 A skipped kernel test counts as unverified; chip_smoke.py verifies the
 kernel on the card as well.
 """
+import zlib
+
 import numpy as np
 import pytest
 import torch
 
 from deflate_compression_tpu_torch import corpus
+from deflate_compression_tpu_torch.decode import device_inflate as DI
+from deflate_compression_tpu_torch.decode import index as tidx
 from deflate_compression_tpu_torch.format import deflate as td
+from deflate_compression_tpu_torch.ops import decode_symbols as DS
 from deflate_compression_tpu_torch.ops import histogram as H
 
 
@@ -49,3 +54,89 @@ def test_encode_shard_cuda_matches_cpu(cuda, size, valid_len, final):
     for k in c:
         if k != "words":
             assert torch.equal(g[k].cpu(), c[k]), k
+
+
+BATCH_KEYS = ("words", "block_bit_base", "block_out_start", "btype",
+              "n_blocks", "sub_bit", "sub_out", "sub_blk")
+
+
+def _batch(size=1 << 18):
+    kinds = [("text", size), ("mixed", size - 4321), ("random", size - 9)]
+    rs, valid = [], []
+    for i, (k, v) in enumerate(kinds):
+        x = torch.from_numpy(corpus.sample(k, size, seed=i))
+        rs.append(td.encode_shard(x, v, i == len(kinds) - 1))
+        valid.append(v)
+    return {k: torch.stack([r[k] for r in rs]) for k in BATCH_KEYS}, valid
+
+
+@pytest.mark.cuda
+def test_decode_symbols_kernel_matches_plain(cuda):
+    b, valid = _batch()
+    S = 1 << 18
+    flat = DI.flat_batch(*(b[k].to(cuda) for k in BATCH_KEYS), valid, S)
+    p = DI.plan(**flat)
+    args = DI.phase_b_args(p, len(valid) * S, 32768)
+    before = DS.decode_symbols.launches
+    got = DS.decode_symbols(*args)
+    torch.cuda.synchronize()
+    assert DS.decode_symbols.launches == before + 1
+    want = DS.decode_symbols_ref(*args)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    assert bool(got.done[p.ln.llive].all())
+
+
+@pytest.mark.cuda
+def test_lut_gather_kernel_matches_take(cuda):
+    rng = np.random.default_rng(5)
+    tbl = torch.from_numpy(rng.integers(-2**31, 2**31, 2048)
+                           .astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 2048, 4096)
+                           .astype(np.int32)).to(cuda)
+    before = DS.lut_gather.launches
+    got = DS.lut_gather(tbl, idx)
+    torch.cuda.synchronize()
+    assert DS.lut_gather.launches == before + 1
+    assert torch.equal(got, DS.lut_gather_ref(tbl, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutate", [False, True])
+def test_decode_blocks_batch_cuda_matches_cpu(cuda, mutate):
+    b, valid = _batch()
+    S = 1 << 18
+    if mutate:
+        rng = np.random.default_rng(3)
+        w = b["words"].clone()
+        for _ in range(6):
+            s = int(rng.integers(0, 2))
+            w[s, int(rng.integers(0, 4000))] ^= 1 << int(rng.integers(0, 31))
+        b["words"] = w
+    args = [b[k] for k in BATCH_KEYS]
+    before = DS.decode_symbols.launches
+    g = DI.decode_blocks_batch(*(x.to(cuda) for x in args), valid, S)
+    torch.cuda.synchronize()
+    assert DS.decode_symbols.launches == before + 1
+    c = DI.decode_blocks_batch(*args, valid, S)
+    assert bool(g["ok"]) == bool(c["ok"]) == (not mutate)
+    assert torch.equal(g["bad_lanes"].cpu(), c["bad_lanes"])
+    assert torch.equal(g["out"].cpu(), c["out"])
+
+
+@pytest.mark.cuda
+def test_decompress_indexed_cuda_long_codes(cuda):
+    """A zlib-9 stream of skewed bytes has codes over 11 bits: the kernel's
+    long-code walk on the card."""
+    rng = np.random.default_rng(9)
+    alphabet = np.frombuffer(b"abcdefgh" * 4 + b"\x00" * 200, np.uint8)
+    raw = rng.choice(alphabet, 300_000).tobytes()
+    z = zlib.compress(raw, 9)
+    body = z[2:-4]
+    idx = tidx.build_index(body, prefer_native=False)
+    before = DS.decode_symbols.launches
+    out = tidx.decompress_indexed(body, idx, shard_out=1 << 17,
+                                  expected_adler=zlib.adler32(raw),
+                                  device="cuda")
+    assert out == raw
+    assert DS.decode_symbols.launches > before

@@ -4,6 +4,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +22,16 @@ from deflate_compression_tpu.utils.config import CodecConfig
 data = (b"a jax-free encode of one 32 KB shard. " * 1000)[:32768]
 blob = ZlibCodec(CodecConfig(shard_size=32768), device="cpu").compress(data)
 assert zlib.decompress(blob) == data
+from deflate_compression_tpu_torch.decode.index import (build_index,
+                                                        decompress_indexed)
+from deflate_compression_tpu_torch.models.codec import compress_stream
+sink = []
+body = b"".join(compress_stream([data], CodecConfig(shard_size=32768,
+                                                    container="raw"),
+                                index_sink=sink, device="cpu"))
+idx = build_index(body, prefer_native=False)
+assert decompress_indexed(body, idx, expected_adler=zlib.adler32(data),
+                          device="cpu") == data
 assert sys.modules["jax"] is None
 assert not any(m.startswith("jax.") for m in sys.modules), "jax submodule"
 print("NOJAX_OK", len(blob))
@@ -62,3 +73,36 @@ def test_codec_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         ZlibCodec()
+
+
+def test_kernel_wrappers_reject_other_devices():
+    from deflate_compression_tpu_torch.ops import decode_symbols as DS
+    tbl = torch.zeros(2048, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        DS.lut_gather(tbl, torch.zeros(16, dtype=torch.int32, device="meta"))
+
+
+def test_decompress_indexed_default_device_is_cuda(monkeypatch):
+    from deflate_compression_tpu_torch.decode.index import (
+        DecodeIndex, decompress_indexed)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    idx = DecodeIndex(np.zeros(1, np.int64), np.zeros(1, np.int64),
+                      np.zeros(1, np.uint8), 0)
+    with pytest.raises(RuntimeError):
+        decompress_indexed(b"\x01\x00\x00\xff\xff", idx)
+
+
+def test_kernel_build_failure_raises(monkeypatch, tmp_path):
+    """A kernel that does not build raises; nothing falls back."""
+    import shutil
+    from deflate_compression_tpu_torch.ops import cuda_build
+    src = tmp_path / "broken_kernel.cu"
+    src.write_text("this is not CUDA\n")
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: shutil.which("false"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_build.build(src)
+    monkeypatch.undo()
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build(src)
