@@ -6,15 +6,20 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
   1. device: the card's name and power limit;
   2. build: start nvcc on every CUDA source of csrc/ at once, wait for all;
   3. tile_histogram against its plain PyTorch version, exact equality, and
-     both times at the main-path shape;
+     both times at the main-path shape: per call, on the device per launch
+     and summed by kernel name under torch.profiler (`timings`);
   4. the encode slice: ZlibCodec.compress of an ~8.5 MB corpus on the card,
      checked by zlib.decompress, with the kernel's launch count;
   5. encode_shard on the card against the port on the CPU, bit for bit, for
      the first and the last shard, and the whole stream of phase 4;
-  6. build: decode_symbols.cu (compiled in phase 2) loaded;
+  6. build: decode_symbols.cu and lut_gather.cu (compiled in phase 2)
+     loaded;
   7. decode_symbols and lut_gather against their plain versions, exactly,
-     on the corpus's first and last shards and on the whole flat batch, and
-     the median of 25 timed launches of each kernel and plain version;
+     decode_symbols on the corpus's first and last shards and on the whole
+     flat batch, lut_gather at the probe's (2048, 4096), the block-flag
+     lookup, a table past 32768 entries and a bandwidth-bound 2^24 indices
+     (in GB/s, beside a device-to-device copy of the same bytes); each
+     kernel's and plain version's times as in phase 3;
   8. the decode slice: compress_stream with an index sink, then
      decode_blocks_batch over all shards in one flat call (adler32 per
      shard, bytes, verified-decode MB/s, launch counts, phase times),
@@ -51,20 +56,123 @@ N_MUTATIONS = 6
 WINDOW = 32768
 
 
+HBM_GBS = 3350.0                 # H100 SXM device memory, GB/s (data sheet)
+
+
+def _event():
+    return torch.cuda.Event(enable_timing=True)
+
+
 def cuda_ms(fn, reps: int = 25) -> float:
-    """Median milliseconds of fn() by CUDA events, after a warm-up."""
+    """Per-call time: the median milliseconds of one fn() between two CUDA
+    events, after a warm-up. For a call of a few microseconds of device
+    work this is the host's enqueue time as much as the device's."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+        a, b = _event(), _event()
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _spin(ms: float) -> None:
+    """Hold the current stream for about `ms` milliseconds."""
+    if not hasattr(_spin, "cycles_per_ms"):
+        a, b = _event(), _event()
+        torch.cuda._sleep(1_000_000)
+        a.record()
+        torch.cuda._sleep(10_000_000)
+        b.record()
+        b.synchronize()
+        _spin.cycles_per_ms = 10_000_000 / a.elapsed_time(b)
+    torch.cuda._sleep(int(ms * _spin.cycles_per_ms))
+
+
+def device_ms(fn, n: int):
+    """Milliseconds per call from one CUDA event pair around n back-to-back
+    calls, after a warm-up. A spin kernel first holds the stream while the
+    host queues the n calls, so the pair times the device's work and the
+    gaps between launches, not the host's enqueue; the spin grows until the
+    device is still in it when the last call is queued. Returns (ms, held):
+    held is False where fn waits for the device itself (an .item() inside),
+    so nothing can be queued ahead and the pair times host and device."""
+    fn()
+    torch.cuda.synchronize()
+    _spin(50.0)
+    c = _event()
+    c.record()
+    fn()
+    held = not c.query()            # fn returned while the spin still ran
+    torch.cuda.synchronize()
+    spin = 5.0
+    while True:
+        a, b = _event(), _event()
+        if held:
+            _spin(spin)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        covered = not a.query()
+        b.synchronize()
+        if covered or not held:
+            return a.elapsed_time(b) / n, held
+        if spin > 2000:
+            raise AssertionError("device_ms: the host did not queue the run "
+                                 "within a 2 s spin")
+        spin *= 4
+
+
+def profiled_ms(fn, n: int) -> dict:
+    """Device milliseconds per call by kernel name, summed over a
+    torch.profiler window of n calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.self_device_time_total / 1e3 / n
+    return by
+
+
+def timings(kernel: str, fn, plain, n: int, prof_n: int) -> dict:
+    """A kernel's and its plain version's times: per call (`cuda_ms`), on
+    the device per launch (`device_ms`, n calls) and by kernel name under
+    torch.profiler (`profiled_ms`, prof_n calls; the kernel's own entries,
+    and every device entry of the plain version)."""
+    t = {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain)}
+    t["device_ms"], t["held"] = device_ms(fn, n)
+    t["plain_device_ms"], t["plain_held"] = device_ms(plain, n)
+    by = profiled_ms(fn, prof_n)
+    t["prof_ms"] = sum(v for k, v in by.items() if kernel in k)
+    plain_by = profiled_ms(plain, prof_n)
+    t["plain_prof_ms"] = sum(plain_by.values())
+    t["plain_kernels"] = len(plain_by)
+    return t
+
+
+def show(t: dict) -> str:
+    """One line of a `timings` result."""
+    def dev(ms, held):
+        return f"{ms:.4f}" + ("" if held else " (waits for the device, "
+                              "host included)")
+    return (f"kernel {t['ms']:.4f} ms per call, {dev(t['device_ms'], t['held'])}"
+            f" ms device per launch, {t['prof_ms']:.4f} ms profiler; plain "
+            f"{t['plain_ms']:.4f} ms per call, "
+            f"{dev(t['plain_device_ms'], t['plain_held'])} ms device, "
+            f"{t['plain_prof_ms']:.4f} ms profiler over "
+            f"{t['plain_kernels']} kernel names")
 
 
 def main() -> int:
@@ -79,6 +187,7 @@ def main() -> int:
     from deflate_compression_tpu_torch.ops import cuda_build
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
     from deflate_compression_tpu_torch.ops import histogram as H
+    from deflate_compression_tpu_torch.ops import lut_gather as LG
 
     dev = torch.device("cuda")
     # ---------------------------------------------------------- 1. device
@@ -93,14 +202,16 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    builds = [cuda_build.Build(src) for src in (H.SOURCE, DS.SOURCE)]
+    builds = [cuda_build.Build(src) for src in (H.SOURCE, DS.SOURCE,
+                                                  LG.SOURCE)]
     lib = builds[0].wait()
     t_hist = time.perf_counter() - t0
-    ds_lib = builds[1].wait()
+    ds_lib, lg_lib = builds[1].wait(), builds[2].wait()
     t_ds = time.perf_counter() - t0
-    print(f"phase 2 build: nvcc started on tile_histogram.cu and "
-          f"decode_symbols.cu together; {lib.name} in {t_hist:.2f} s, "
-          f"{ds_lib.name} done {t_ds:.2f} s after the start")
+    print(f"phase 2 build: nvcc started on tile_histogram.cu, "
+          f"decode_symbols.cu and lut_gather.cu together; {lib.name} in "
+          f"{t_hist:.2f} s, {ds_lib.name} and {lg_lib.name} done {t_ds:.2f} s "
+          f"after the start")
     torch.cuda.synchronize()
 
     # ------------------------------------------ 3. kernel vs plain version
@@ -119,13 +230,14 @@ def main() -> int:
                                  f" max abs err {err}")
         max_err = max(max_err, err)
         if rows == 32:
-            times[C] = (cuda_ms(lambda: H.tile_histogram(sym, C)),
-                        cuda_ms(lambda: H.tile_histogram_ref(sym, C)))
+            times[C] = timings("tile_histogram_kernel",
+                               lambda: H.tile_histogram(sym, C),
+                               lambda: H.tile_histogram_ref(sym, C), 100, 20)
     shapes = ", ".join(f"{s[:2]}/C={s[2]}" for s in SHAPES)
-    timings = "; ".join(f"(32, 32768) C={c}: kernel {k:.4f} ms, plain "
-                        f"{p:.4f} ms" for c, (k, p) in times.items())
+    shown = "; ".join(f"(32, 32768) C={c}: {show(t)}"
+                      for c, t in times.items())
     print(f"phase 3 kernel: tolerance 0 (exact), max abs err {max_err} on "
-          f"{shapes}; {timings}")
+          f"{shapes}; {shown}")
     torch.cuda.synchronize()
 
     # ------------------------------------------------------- 4. the slice
@@ -187,41 +299,51 @@ def main() -> int:
           f"{len(blob)}-byte zlib stream identical")
     torch.cuda.synchronize()
 
-    decode = decode_phases(raw, cfg, blob, dev, ds_lib.name, t_ds)
+    decode = decode_phases(raw, cfg, blob, dev, (ds_lib.name, lg_lib.name),
+                           t_ds)
 
-    k286, p286 = times[286]
     print(json.dumps({"kernels": [{
         "name": "tile_histogram", "route": "cuda",
         "source": "deflate_compression_tpu_torch/csrc/tile_histogram.cu",
         "replaces": "deflate_compression_tpu/ops/histogram_pallas.py:74",
         "launches": launches, "max_abs_err": max_err,
-        "ms": k286, "plain_ms": p286}, *decode]}))
+        **entry(times[286])}, *decode]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 
 
-def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_name: str,
+def entry(t: dict) -> dict:
+    """The times of a kernels-line entry from a `timings` result. Where a
+    call waits for the device, its device_ms includes the host; prof_ms is
+    then the device time."""
+    return {k: t[k] for k in ("ms", "plain_ms", "device_ms",
+                              "plain_device_ms", "prof_ms", "plain_prof_ms")}
+
+
+def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
                   t_build: float):
     """Phases 6-9: the decoder's kernels and the decode slice. Returns the
     decode kernels' entries of the kernels JSON line."""
-    from deflate_compression_tpu.utils.errors import DeflateError
     from deflate_compression_tpu_torch.core.checksum import adler32_torch
     from deflate_compression_tpu_torch.corpus import repo_text
     from deflate_compression_tpu_torch.decode import device_inflate as DI
     from deflate_compression_tpu_torch.decode.index import (
-        build_index, decompress_indexed, index_from_shards)
+        DeflateError, build_index, decompress_indexed, index_from_shards,
+        native_available)
     from deflate_compression_tpu_torch.format.deflate import out_words
     from deflate_compression_tpu_torch.models.codec import compress_stream
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
+    from deflate_compression_tpu_torch.ops import lut_gather as LG
 
     S = cfg.shard_size
     # ----------------------------------------------------------- 6. build
     DS._load()
-    print(f"phase 6 build: {lib_name} loaded; nvcc ran alongside "
-          f"tile_histogram.cu, both done {t_build:.2f} s after the start "
-          f"of phase 2")
+    LG._bind()
+    print(f"phase 6 build: {' and '.join(lib_names)} loaded; nvcc ran "
+          f"alongside tile_histogram.cu, all done {t_build:.2f} s after the "
+          f"start of phase 2")
     torch.cuda.synchronize()
 
     # ---------------------------------- 7. decode kernels vs plain versions
@@ -275,32 +397,41 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_name: str,
     n_lanes = int(pf.ln.llive.sum())
     if not bool(got.done[pf.ln.llive].all()):
         raise AssertionError("decode_symbols: a live lane did not finish")
-    ds_ms = cuda_ms(lambda: DS.decode_symbols(*bargs))
-    ds_plain = cuda_ms(lambda: DS.decode_symbols_ref(*bargs))
+    ds_t = timings("decode_symbols_kernel",
+                   lambda: DS.decode_symbols(*bargs),
+                   lambda: DS.decode_symbols_ref(*bargs), 20, 2)
+    print(f"phase 7 decode_symbols: tolerance 0 (exact); == plain on shards "
+          f"0 and {nsh - 1} and the flat batch of {nsh} shards ({n_lanes} "
+          f"live lanes): {show(ds_t)}")
 
     rng = np.random.default_rng(11)
-    tbl = torch.from_numpy(rng.integers(-2**31, 2**31, 2048)
-                           .astype(np.int32)).to(dev)
-    idx = torch.from_numpy(rng.integers(0, 2048, 4096)
-                           .astype(np.int32)).to(dev)
-    lg_err = same([DS.lut_gather(tbl, idx)], [DS.lut_gather_ref(tbl, idx)],
-                  "lut_gather (2048, 4096)")
-    probe_ms = cuda_ms(lambda: DS.lut_gather(tbl, idx))
-    probe_plain = cuda_ms(lambda: DS.lut_gather_ref(tbl, idx))
+
+    def rand_case(n_tbl, n_idx):
+        return (torch.from_numpy(rng.integers(-2**31, 2**31, n_tbl)
+                                 .astype(np.int32)).to(dev),
+                torch.from_numpy(rng.integers(0, n_tbl, n_idx)
+                                 .astype(np.int32)).to(dev))
     ftbl = DI.block_flags(pf.a)
     fidx = flat["sub_blk"].clamp(0, pf.a.bbad.shape[0] - 1).to(torch.int32)
-    lg_err = max(lg_err, same([DS.lut_gather(ftbl, fidx)],
-                              [DS.lut_gather_ref(ftbl, fidx)],
-                              "lut_gather (block flags)"))
-    lg_ms = cuda_ms(lambda: DS.lut_gather(ftbl, fidx))
-    lg_plain = cuda_ms(lambda: DS.lut_gather_ref(ftbl, fidx))
-    print(f"phase 7 decode kernels: tolerance 0 (exact); decode_symbols == "
-          f"plain on shards 0 and {nsh - 1} and the flat batch of {nsh} "
-          f"shards ({n_lanes} live lanes): kernel {ds_ms:.4f} ms, plain "
-          f"{ds_plain:.4f} ms; lut_gather == tbl[idx] at (2048, 4096): "
-          f"kernel {probe_ms:.4f} ms, plain {probe_plain:.4f} ms; at the "
-          f"block-flag lookup ({ftbl.shape[0]}, {fidx.shape[0]}): kernel "
-          f"{lg_ms:.4f} ms, plain {lg_plain:.4f} ms")
+    cases = [("probe", *rand_case(2048, 4096)), ("block flags", ftbl, fidx),
+             ("past the old cap", *rand_case(65536, 1 << 20)),
+             ("bandwidth", *rand_case(2048, 1 << 24))]
+    lg_err = 0
+    lg_t = {}
+    for label, t, i in cases:
+        shape = (t.shape[0], i.shape[0])
+        want = LG.lut_gather_ref(t, i)
+        lg_err = max(lg_err, same([LG.lut_gather(t, i)], [want],
+                                  f"lut_gather {label} {shape}"))
+        r = lg_t[label] = timings("lut_gather_kernel",
+                                  lambda: LG.lut_gather(t, i),
+                                  lambda: LG.lut_gather_ref(t, i), 100, 20)
+        gbs = 8 * shape[1] / (r["device_ms"] * 1e-3) / 1e9
+        copy_ms = device_ms(lambda: i.clone(), 100)[0]
+        print(f"phase 7 lut_gather {label} {shape}: == tbl[idx], error 0; "
+              f"{show(r)}; {gbs:.1f} GB/s of index and output, "
+              f"{gbs / HBM_GBS:.3f} of {HBM_GBS:.0f} GB/s; a copy of idx "
+              f"(the same bytes) {copy_ms:.4f} ms")
     torch.cuda.synchronize()
 
     # ------------------------------------------------- 8. the decode slice
@@ -314,14 +445,14 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_name: str,
 
     verified_decode()
     torch.cuda.synchronize()
-    DS.decode_symbols.launches = DS.lut_gather.launches = 0
+    DS.decode_symbols.launches = LG.lut_gather.launches = 0
     t0 = time.perf_counter()
     res, ok, ads = verified_decode()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     ds_launches = DS.decode_symbols.launches
-    lg_launches = DS.lut_gather.launches
-    if ds_launches < 1 or lg_launches < 1:
+    lg_launches = LG.lut_gather.launches
+    if ds_launches != 1 or lg_launches != 1:
         raise AssertionError(f"decode path launched decode_symbols "
                              f"{ds_launches} and lut_gather {lg_launches} "
                              f"times")
@@ -359,8 +490,7 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_name: str,
     fraw = raw[:FOREIGN_BYTES]
     z9 = zlib.compress(fraw, 9)
     body9 = z9[2:-4]
-    from deflate_compression_tpu import native_bridge
-    native = native_bridge.available()
+    native = native_available()
     t0 = time.perf_counter()
     idx9 = build_index(body9)
     t_bi = time.perf_counter() - t0
@@ -462,12 +592,12 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_name: str,
              "source": "deflate_compression_tpu_torch/csrc/decode_symbols.cu",
              "replaces": "tools/probe_pallas_r5.py:35",
              "launches": ds_launches, "max_abs_err": max_err,
-             "ms": ds_ms, "plain_ms": ds_plain},
+             **entry(ds_t)},
             {"name": "lut_gather", "route": "cuda",
-             "source": "deflate_compression_tpu_torch/csrc/decode_symbols.cu",
+             "source": "deflate_compression_tpu_torch/csrc/lut_gather.cu",
              "replaces": "tools/probe_pallas_r5.py:35",
              "launches": lg_launches, "max_abs_err": lg_err,
-             "ms": lg_ms, "plain_ms": lg_plain}]
+             **entry(lg_t["block flags"])}]
 
 
 if __name__ == "__main__":

@@ -27,8 +27,9 @@ JAX package's.
 
 Device stages are plain PyTorch on int64 tensors (u32 values carried in
 int64, see `core/u32.py`), except the hand-written CUDA kernels in `csrc/`:
-the per-tile symbol histogram of the encoder (`ops/histogram.py`) and the
-decoder's phase-B symbol decode and LUT gather (`ops/decode_symbols.py`).
+the per-tile symbol histogram of the encoder (`ops/histogram.py`), the
+decoder's phase-B symbol decode (`ops/decode_symbols.py`) and its lanes'
+block-flag gather (`ops/lut_gather.py`).
 Runs on `device="cpu"` take each kernel's plain PyTorch version; a CUDA
 tensor always goes through the kernel.
 

@@ -23,10 +23,6 @@
 // resolve by the RFC 1951 §3.2.2 count/first-code walk over the block's
 // canonical tables, also staged in shared memory.
 //
-// The same lookup serves `lut_gather`, the probe's out[i] = tbl[idx[i]] on a
-// table staged in shared memory; the decoder uses it for each lane's lookup
-// of its block's flags.
-//
 // What bounds it on this card: latency, not bandwidth. Every step is a
 // dependent chain (word loads -> LUT load -> extra bits -> dist LUT load ->
 // token store) and lanes of a warp finish after different token counts, so
@@ -48,9 +44,6 @@ constexpr int kNumDist = 32;
 constexpr int kMaxBits = 15;
 constexpr int kCntLen = kMaxBits + 1;
 constexpr int kThreads = 128;
-constexpr int kGatherThreads = 256;
-constexpr int kGatherPerThread = 4;
-constexpr int kMaxGatherTable = 32768;          // 128 KB of shared memory
 
 struct Params {
   const uint32_t* words;
@@ -80,7 +73,7 @@ struct Params {
   int64_t* ocur;
 };
 
-// The one table lookup both kernels share: entry of the low bits of `bits`.
+// The LUT entry of the low bits of `bits`.
 __device__ __forceinline__ int32_t lut_at(const int32_t* table, uint32_t bits,
                                           uint32_t mask) {
   return table[bits & mask];
@@ -223,24 +216,6 @@ decode_symbols_kernel(const Params p) {
   p.ocur[lane] = ocur;
 }
 
-__global__ void __launch_bounds__(kGatherThreads)
-lut_gather_kernel(const int32_t* __restrict__ tbl,
-                  const int32_t* __restrict__ idx, int32_t* __restrict__ out,
-                  int n_tbl, int64_t n_idx) {
-  extern __shared__ int32_t s_tbl[];
-  for (int i = threadIdx.x; i < n_tbl; i += kGatherThreads)
-    s_tbl[i] = __ldg(tbl + i);
-  __syncthreads();
-  const uint32_t mask = static_cast<uint32_t>(n_tbl - 1);
-  const int64_t base =
-      static_cast<int64_t>(blockIdx.x) * kGatherThreads * kGatherPerThread;
-  for (int k = 0; k < kGatherPerThread; ++k) {
-    const int64_t i = base + k * kGatherThreads + threadIdx.x;
-    if (i < n_idx)
-      out[i] = lut_at(s_tbl, static_cast<uint32_t>(__ldg(idx + i)), mask);
-  }
-}
-
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). Every
@@ -285,30 +260,5 @@ extern "C" int decode_symbols_launch(
   p.ocur = static_cast<int64_t*>(ocur);
   decode_symbols_kernel<<<static_cast<unsigned>(n_cta), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out[i] = tbl[idx[i] & (n_tbl - 1)] with tbl staged in shared memory;
-// n_tbl is a power of two <= 32768 (the wrapper checks).
-extern "C" int lut_gather_launch(const void* tbl, const void* idx, void* out,
-                                 int64_t n_tbl, int64_t n_idx, void* stream) {
-  if (n_idx <= 0) return 0;
-  if (n_tbl <= 0 || n_tbl > kMaxGatherTable || (n_tbl & (n_tbl - 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(n_tbl) * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        lut_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int64_t per_cta = static_cast<int64_t>(kGatherThreads) *
-                          kGatherPerThread;
-  const int64_t grid = (n_idx + per_cta - 1) / per_cta;
-  if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  lut_gather_kernel<<<static_cast<unsigned>(grid), kGatherThreads,
-                      smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(tbl), static_cast<const int32_t*>(idx),
-      static_cast<int32_t*>(out), static_cast<int>(n_tbl), n_idx);
   return static_cast<int>(cudaGetLastError());
 }

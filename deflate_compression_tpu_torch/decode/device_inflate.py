@@ -41,6 +41,7 @@ from deflate_compression_tpu.format import constants as C
 from ..core.bits import reverse_bits
 from ..core.huffman import canonical_codes
 from ..ops import decode_symbols as DS
+from ..ops.lut_gather import lut_gather
 
 _RLE_W = C.NUM_LITLEN + C.NUM_DIST            # 316 code lengths at most
 _RLE_STEPS = _RLE_W + 4                       # the JAX loop's step bound
@@ -278,12 +279,9 @@ def lanes(a: PhaseA, sub_bit, sub_out, sub_blk, n_subs, blk_end) -> Lanes:
     dev = sub_bit.device
     NB = a.bbad.shape[0]
     NL = sub_bit.shape[0]
-    if NB > DS.MAX_GATHER_TABLE:
-        raise ValueError(f"{NB} coding blocks in one decode; at most "
-                         f"{DS.MAX_GATHER_TABLE}")
     llanes = torch.arange(NL, device=dev)
     lblk = sub_blk.clamp(0, max(NB - 1, 0))
-    f = DS.lut_gather(block_flags(a), lblk.to(torch.int32))
+    f = lut_gather(block_flags(a), lblk.to(torch.int32))
     llive = (llanes < n_subs) & (sub_blk >= 0) & ((f & 1) == 1)
     nxt = sub_out[(llanes + 1).clamp(max=max(NL - 1, 0))]
     next_sub = torch.where(llanes + 1 < n_subs, nxt, 1 << 30)

@@ -159,18 +159,22 @@ def _read_dynamic_tables(r: BitReader):
     return ll_lut, d_lut
 
 
+def native_available() -> bool:
+    """Whether build_index can take the repository's native C++ pass."""
+    from deflate_compression_tpu import native_bridge
+    return native_bridge.available()
+
+
 def build_index(stream: bytes, bit_pos: int = 0, sub_size: int = SUB_SIZE,
                 prefer_native: bool = True) -> DecodeIndex:
     """One host pass over a raw DEFLATE stream: block boundaries and a
     sub-entry every `sub_size` output bytes, found by decoding symbols but
     only counting output bytes."""
-    if prefer_native:
+    if prefer_native and native_available():
         from deflate_compression_tpu import native_bridge
-        if native_bridge.available():
-            bb, bo, bt, sb, so, sk, out_len = native_bridge.build_index_native(
-                bytes(stream), bit_pos, sub_size)
-            return DecodeIndex(bb, bo, bt.astype(np.uint8), out_len,
-                               sb, so, sk)
+        bb, bo, bt, sb, so, sk, out_len = native_bridge.build_index_native(
+            bytes(stream), bit_pos, sub_size)
+        return DecodeIndex(bb, bo, bt.astype(np.uint8), out_len, sb, so, sk)
     r = BitReader(stream, bit_pos)
     bit_base, out_start, btypes = [], [], []
     sub_bit, sub_out, sub_blk = [], [], []

@@ -1,16 +1,15 @@
-"""Phase-B symbol decode and the shared-memory LUT gather: CUDA kernel
-wrappers and their plain versions.
+"""Phase-B symbol decode: CUDA kernel wrapper and its plain version.
 
 Counterpart of the symbol loop of the JAX decoder
-(decode/tpu_inflate.py `dec_body` / `one_sym_at`) and of the LUT gather
-that tools/probe_pallas_r5.py::try_lower tried to lower as a Pallas TPU
-kernel. The kernels (`csrc/decode_symbols.cu`) are built at first use by
-`ops/cuda_build.py` and called through ctypes on PyTorch's current stream.
+(decode/tpu_inflate.py `dec_body` / `one_sym_at`), with the shared-memory
+LUT lookups that tools/probe_pallas_r5.py::try_lower tried to lower as a
+Pallas TPU kernel. The kernel (`csrc/decode_symbols.cu`) is built at first
+use by `ops/cuda_build.py` and called through ctypes on PyTorch's current
+stream.
 
-`decode_symbols` and `lut_gather` launch their kernel for CUDA tensors and
-raise if they cannot; they take the plain versions `decode_symbols_ref`
-and `lut_gather_ref` only for tensors that lie on the CPU. Each counts its
-kernel launches in `.launches`.
+`decode_symbols` launches its kernel for CUDA tensors and raises if it
+cannot; it takes the plain version `decode_symbols_ref` only for tensors
+that lie on the CPU. `decode_symbols.launches` counts kernel launches.
 
 Tables (one row per coding block, built by decode/device_inflate.py's
 phase A): a 2^11-entry primary LUT per alphabet whose entry is the symbol's
@@ -39,7 +38,6 @@ MAX_BITS = 15
 N_LL = 288                       # decode-side litlen alphabet (286/287 bad)
 N_D = 32                         # decode-side dist alphabet (30/31 bad)
 THREADS = 128                    # lanes per CTA (kThreads in the source)
-MAX_GATHER_TABLE = 32768         # 128 KB of shared memory
 
 # Static per-symbol payloads (the JAX decoder's _LL_PAY_STATIC /
 # _D_PAY_STATIC). litlen: value(9: literal byte or length base) |
@@ -85,8 +83,7 @@ def _load():
     return cuda_build.load(SOURCE, {
         "decode_symbols_launch": [vp, i64, vp, vp, vp, vp, vp, vp, vp, i64,
                                   vp, vp, vp, vp, vp, vp, vp, vp, i64, i64,
-                                  i64, i64, vp, vp, vp, vp, vp],
-        "lut_gather_launch": [vp, vp, vp, i64, i64, vp]})
+                                  i64, i64, vp, vp, vp, vp, vp]})
 
 
 def _stream(dev: torch.device) -> int:
@@ -96,51 +93,6 @@ def _stream(dev: torch.device) -> int:
 def _check_cuda(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-
-
-# --------------------------------------------------------------- LUT gather
-
-def _check_gather(tbl: torch.Tensor, idx: torch.Tensor) -> None:
-    for name, t in (("tbl", tbl), ("idx", idx)):
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
-            raise TypeError(f"{name} must be an int32 tensor")
-        if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be 1-D and contiguous")
-    n = tbl.shape[0]
-    if n < 1 or n > MAX_GATHER_TABLE or n & (n - 1):
-        raise ValueError(f"tbl size must be a power of two <= "
-                         f"{MAX_GATHER_TABLE}, got {n}")
-    if tbl.device != idx.device:
-        raise ValueError("tbl and idx must be on one device")
-
-
-def lut_gather_ref(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain version: tbl[idx]."""
-    return tbl[idx.long()]
-
-
-def lut_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i] = tbl[idx[i]] for idx in [0, len(tbl)); the table is staged
-    in shared memory and read by the decoder's own lookup. A CUDA tensor
-    goes through the kernel (or this raises); a CPU tensor through
-    `lut_gather_ref`."""
-    _check_gather(tbl, idx)
-    if tbl.device.type == "cpu":
-        return lut_gather_ref(tbl, idx)
-    if tbl.device.type != "cuda":
-        raise ValueError(f"unsupported device {tbl.device}")
-    out = torch.empty_like(idx)
-    lib = _load()
-    with torch.cuda.device(tbl.device):
-        rc = lib.lut_gather_launch(tbl.data_ptr(), idx.data_ptr(),
-                                   out.data_ptr(), tbl.shape[0],
-                                   idx.shape[0], _stream(tbl.device))
-    _check_cuda(rc, "lut_gather")
-    lut_gather.launches += 1
-    return out
-
-
-lut_gather.launches = 0
 
 
 # ------------------------------------------------------------ symbol decode

@@ -18,6 +18,8 @@ from deflate_compression_tpu_torch.decode import index as tidx
 from deflate_compression_tpu_torch.format import deflate as td
 from deflate_compression_tpu_torch.ops import decode_symbols as DS
 from deflate_compression_tpu_torch.ops import histogram as H
+from deflate_compression_tpu_torch.ops import lut_gather as LG
+from test_torch_lanes import lanes_case
 
 
 @pytest.fixture
@@ -94,11 +96,85 @@ def test_lut_gather_kernel_matches_take(cuda):
                            .astype(np.int32)).to(cuda)
     idx = torch.from_numpy(rng.integers(0, 2048, 4096)
                            .astype(np.int32)).to(cuda)
-    before = DS.lut_gather.launches
-    got = DS.lut_gather(tbl, idx)
+    before = LG.lut_gather.launches
+    got = LG.lut_gather(tbl, idx)
     torch.cuda.synchronize()
-    assert DS.lut_gather.launches == before + 1
-    assert torch.equal(got, DS.lut_gather_ref(tbl, idx))
+    assert LG.lut_gather.launches == before + 1
+    assert torch.equal(got, LG.lut_gather_ref(tbl, idx))
+
+
+def _gather_case(cuda, n_tbl, n_idx, seed, skip=0):
+    rng = np.random.default_rng(seed)
+    tbl = torch.from_numpy(rng.integers(-2**31, 2**31, n_tbl)
+                           .astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n_tbl, n_idx + skip)
+                           .astype(np.int32)).to(cuda)
+    return tbl, idx[skip:]
+
+
+def _same_gather(tbl, idx):
+    """The kernel equals tbl[idx] exactly and counts one launch (none for
+    an empty idx, where nothing is launched)."""
+    before = LG.lut_gather.launches
+    got = LG.lut_gather(tbl, idx)
+    torch.cuda.synchronize()
+    assert LG.lut_gather.launches == before + (idx.numel() > 0)
+    assert got.shape == idx.shape and got.dtype == torch.int32
+    assert torch.equal(got, LG.lut_gather_ref(tbl, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_idx", [0, 1, 5, 1023, 4096, 1 << 20])
+def test_lut_gather_kernel_index_counts(cuda, n_idx):
+    _same_gather(*_gather_case(cuda, 2048, n_idx, n_idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tbl", [1, 2, 2048, 32768, 65536, 1 << 20])
+def test_lut_gather_kernel_table_sizes(cuda, n_tbl):
+    _same_gather(*_gather_case(cuda, n_tbl, 1 << 16, n_tbl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tbl,n_idx", [(512, 147456), (4, 999),
+                                         (32768, 1 << 20), (1 << 24, 4097)])
+def test_lut_gather_kernel_shapes(cuda, n_tbl, n_idx):
+    _same_gather(*_gather_case(cuda, n_tbl, n_idx, n_idx))
+
+
+@pytest.mark.cuda
+def test_lut_gather_kernel_sorted_indices_and_out_of_range_bits(cuda):
+    """Sorted block ids, as the decoder's lanes give them; and indices
+    outside the table read tbl[idx & (n - 1)] and never past it."""
+    tbl, idx = _gather_case(cuda, 512, 147456, 4)
+    _same_gather(tbl, idx.sort().values)
+    wide = idx | (1 << 20)
+    assert torch.equal(LG.lut_gather(tbl, wide), LG.lut_gather_ref(tbl, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [1, 2, 3])
+def test_lut_gather_kernel_unaligned_views(cuda, skip):
+    """idx and tbl views that start `skip` elements in: not 16-byte
+    aligned, so the kernel takes its scalar head and tail."""
+    tbl, idx = _gather_case(cuda, 2048, 100_003, skip, skip)
+    _same_gather(tbl, idx)
+    base = torch.cat([tbl[:skip], tbl])
+    _same_gather(base[skip:], idx)
+    _same_gather(tbl, idx[:skip + 2])
+
+
+@pytest.mark.cuda
+def test_lanes_past_old_block_cap_cuda_matches_cpu(cuda):
+    a, args, _ = lanes_case(40_000, 2)
+    before = LG.lut_gather.launches
+    g = DI.lanes(DI.PhaseA(*(x if x is None else x.to(cuda) for x in a)),
+                 *(x.to(cuda) for x in args))
+    torch.cuda.synchronize()
+    assert LG.lut_gather.launches == before + 1
+    c = DI.lanes(a, *args)
+    for k in c._fields:
+        assert torch.equal(getattr(g, k).cpu(), getattr(c, k)), k
 
 
 @pytest.mark.cuda

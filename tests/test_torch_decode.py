@@ -19,6 +19,7 @@ from deflate_compression_tpu_torch.core.huffman import canonical_codes_np
 from deflate_compression_tpu_torch.decode import device_inflate as DI
 from deflate_compression_tpu_torch.format import deflate as td
 from deflate_compression_tpu_torch.ops import decode_symbols as DS
+from deflate_compression_tpu_torch.ops import lut_gather as LG
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)
@@ -358,8 +359,8 @@ def test_lut_gather_cpu_is_plain_take():
     rng = np.random.default_rng(0)
     tbl = torch.from_numpy(rng.integers(0, 1000, 2048).astype(np.int32))
     idx = torch.from_numpy(rng.integers(0, 2048, 4096).astype(np.int32))
-    before = DS.lut_gather.launches
-    assert torch.equal(DS.lut_gather(tbl, idx), tbl[idx.long()])
-    assert DS.lut_gather.launches == before
+    before = LG.lut_gather.launches
+    assert torch.equal(LG.lut_gather(tbl, idx), tbl[idx.long()])
+    assert LG.lut_gather.launches == before
     with pytest.raises(ValueError):
-        DS.lut_gather(tbl[:1000], idx)
+        LG.lut_gather(tbl[:1000], idx)

@@ -76,10 +76,10 @@ def test_codec_default_device_is_cuda(monkeypatch):
 
 
 def test_kernel_wrappers_reject_other_devices():
-    from deflate_compression_tpu_torch.ops import decode_symbols as DS
+    from deflate_compression_tpu_torch.ops.lut_gather import lut_gather
     tbl = torch.zeros(2048, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        DS.lut_gather(tbl, torch.zeros(16, dtype=torch.int32, device="meta"))
+        lut_gather(tbl, torch.zeros(16, dtype=torch.int32, device="meta"))
 
 
 def test_decompress_indexed_default_device_is_cuda(monkeypatch):
