@@ -5,9 +5,14 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints one line and ends with torch.cuda.synchronize()):
   1. device: the card's name and power limit;
   2. build: start nvcc on every CUDA source of csrc/ at once, wait for all;
-  3. tile_histogram against its plain PyTorch version, exact equality, and
-     both times at the main-path shape: per call, on the device per launch
-     and summed by kernel name under torch.profiler (`timings`);
+  3. tile_histogram against its plain PyTorch version, exact equality, on
+     int32 and int64 symbols, rows 1-32, C = 30, 286 and MAX_CLASSES, and
+     a skewed input (every row one symbol 32768 times); both times at the
+     main-path shape on int32 and on the encoder's int64 symbols, and on
+     the skewed rows: per call, on the device per launch and summed by
+     kernel name under torch.profiler (`timings`), beside the bound and a
+     torch.bincount of the flattened row-offset index (context: it is not
+     the same function); the wrapper once under sync debug mode "error";
   4. the encode slice: ZlibCodec.compress of an ~8.5 MB corpus on the card,
      checked by zlib.decompress, with the kernel's launch count;
   5. encode_shard on the card against the port on the CPU, bit for bit, for
@@ -16,10 +21,11 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      loaded;
   7. decode_symbols and lut_gather against their plain versions, exactly,
      decode_symbols on the corpus's first and last shards and on the whole
-     flat batch, lut_gather at the probe's (2048, 4096), the block-flag
-     lookup, a table past 32768 entries and a bandwidth-bound 2^24 indices
-     (in GB/s, beside a device-to-device copy of the same bytes); each
-     kernel's and plain version's times as in phase 3;
+     flat batch (its wrapper once under sync debug mode "error"),
+     lut_gather at the probe's (2048, 4096), the block-flag lookup, a
+     table past 32768 entries and a bandwidth-bound 2^24 indices (in GB/s,
+     beside a device-to-device copy of the same bytes); each kernel's and
+     plain version's times as in phase 3, with bound and library call;
   8. the decode slice: compress_stream with an index sink, then
      decode_blocks_batch over all shards in one flat call (adler32 per
      shard, bytes, verified-decode MB/s, launch counts, phase times),
@@ -28,7 +34,12 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
   9. strictness on the card and GPU against CPU: seeded bit flips flagged
      or rejected with the CPU's ok and bad lanes, decompress_indexed
      raising on each, the declared-window violation, clean shards equal.
-Any failure raises, so the script exits non-zero. The last line is the
+Any failure raises, so the script exits non-zero. Before the last line it
+prints the kernels' JSON line: per kernel its launches on the main path,
+its error against the plain version, and its device time per launch
+(`ms`), its plain version's (`plain_ms`), the bound (`bound_ms`: the bytes
+it must move over 3.35 TB/s; the operations are far below the peak rates)
+and `share_of_bound`, each computed from this run. The last line is the
 JSON result {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -45,6 +56,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+from deflate_compression_tpu_torch.ops.timing import (  # noqa: E402
+    cuda_ms, device_ms, profiled_ms)
+
 SHAPES = [(32, 32768, 286), (32, 32768, 30), (17, 32768, 286), (1, 32768, 286)]
 CORPUS_BYTES = 8_500_000
 FOREIGN_BYTES = 4_000_000
@@ -57,101 +72,17 @@ WINDOW = 32768
 
 
 HBM_GBS = 3350.0                 # H100 SXM device memory, GB/s (data sheet)
+TABLE_BYTES = 17_792             # one block's decode tables (decode_symbols.cu)
 
 
-def _event():
-    return torch.cuda.Event(enable_timing=True)
-
-
-def cuda_ms(fn, reps: int = 25) -> float:
-    """Per-call time: the median milliseconds of one fn() between two CUDA
-    events, after a warm-up. For a call of a few microseconds of device
-    work this is the host's enqueue time as much as the device's."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = _event(), _event()
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def _spin(ms: float) -> None:
-    """Hold the current stream for about `ms` milliseconds."""
-    if not hasattr(_spin, "cycles_per_ms"):
-        a, b = _event(), _event()
-        torch.cuda._sleep(1_000_000)
-        a.record()
-        torch.cuda._sleep(10_000_000)
-        b.record()
-        b.synchronize()
-        _spin.cycles_per_ms = 10_000_000 / a.elapsed_time(b)
-    torch.cuda._sleep(int(ms * _spin.cycles_per_ms))
-
-
-def device_ms(fn, n: int):
-    """Milliseconds per call from one CUDA event pair around n back-to-back
-    calls, after a warm-up. A spin kernel first holds the stream while the
-    host queues the n calls, so the pair times the device's work and the
-    gaps between launches, not the host's enqueue; the spin grows until the
-    device is still in it when the last call is queued. Returns (ms, held):
-    held is False where fn waits for the device itself (an .item() inside),
-    so nothing can be queued ahead and the pair times host and device."""
-    fn()
-    torch.cuda.synchronize()
-    _spin(50.0)
-    c = _event()
-    c.record()
-    fn()
-    held = not c.query()            # fn returned while the spin still ran
-    torch.cuda.synchronize()
-    spin = 5.0
-    while True:
-        a, b = _event(), _event()
-        if held:
-            _spin(spin)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        covered = not a.query()
-        b.synchronize()
-        if covered or not held:
-            return a.elapsed_time(b) / n, held
-        if spin > 2000:
-            raise AssertionError("device_ms: the host did not queue the run "
-                                 "within a 2 s spin")
-        spin *= 4
-
-
-def profiled_ms(fn, n: int) -> dict:
-    """Device milliseconds per call by kernel name, summed over a
-    torch.profiler window of n calls after a warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by[e.name] = by.get(e.name, 0.0) + e.self_device_time_total / 1e3 / n
-    return by
-
-
-def timings(kernel: str, fn, plain, n: int, prof_n: int) -> dict:
+def timings(kernel: str, fn, plain, n: int, prof_n: int,
+            bound_bytes: int) -> dict:
     """A kernel's and its plain version's times: per call (`cuda_ms`), on
     the device per launch (`device_ms`, n calls) and by kernel name under
     torch.profiler (`profiled_ms`, prof_n calls; the kernel's own entries,
-    and every device entry of the plain version)."""
-    t = {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain)}
+    and every device entry of the plain version); and the bound, the
+    bytes the function must move over the card's memory rate."""
+    t = {"call_ms": cuda_ms(fn), "plain_call_ms": cuda_ms(plain)}
     t["device_ms"], t["held"] = device_ms(fn, n)
     t["plain_device_ms"], t["plain_held"] = device_ms(plain, n)
     by = profiled_ms(fn, prof_n)
@@ -159,6 +90,14 @@ def timings(kernel: str, fn, plain, n: int, prof_n: int) -> dict:
     plain_by = profiled_ms(plain, prof_n)
     t["plain_prof_ms"] = sum(plain_by.values())
     t["plain_kernels"] = len(plain_by)
+    # device time per launch: queued where the call lets the device run
+    # ahead, else the profiler's sum
+    t["ms"] = t["device_ms"] if t["held"] else t["prof_ms"]
+    t["plain_ms"] = (t["plain_device_ms"] if t["plain_held"]
+                     else t["plain_prof_ms"])
+    t["bound_ms"] = bound_bytes / (HBM_GBS * 1e9) * 1e3
+    t["bound_by"] = "bytes"
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
     return t
 
 
@@ -167,19 +106,33 @@ def show(t: dict) -> str:
     def dev(ms, held):
         return f"{ms:.4f}" + ("" if held else " (waits for the device, "
                               "host included)")
-    return (f"kernel {t['ms']:.4f} ms per call, {dev(t['device_ms'], t['held'])}"
-            f" ms device per launch, {t['prof_ms']:.4f} ms profiler; plain "
-            f"{t['plain_ms']:.4f} ms per call, "
+    return (f"kernel {t['call_ms']:.4f} ms per call, "
+            f"{dev(t['device_ms'], t['held'])} ms device per launch, "
+            f"{t['prof_ms']:.4f} ms profiler, bound {t['bound_ms']:.5f} ms "
+            f"(bytes), share of bound {t['share_of_bound']:.3f}; plain "
+            f"{t['plain_call_ms']:.4f} ms per call, "
             f"{dev(t['plain_device_ms'], t['plain_held'])} ms device, "
             f"{t['plain_prof_ms']:.4f} ms profiler over "
             f"{t['plain_kernels']} kernel names")
+
+
+def no_sync(fn):
+    """fn() under torch's sync debug mode "error": raises if it waits for
+    the device."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
     from deflate_compression_tpu_torch import CodecConfig
     from deflate_compression_tpu_torch.corpus import build_corpus
     from deflate_compression_tpu_torch.format.deflate import encode_shard
@@ -218,26 +171,42 @@ def main() -> int:
     rng = np.random.default_rng(7)
     max_err = 0
     times = {}
-    for rows, length, C in SHAPES:
-        sym = torch.from_numpy(rng.integers(-1, C + 5, (rows, length),
-                                            dtype=np.int32)).to(dev)
-        got = H.tile_histogram(sym, C)
-        want = H.tile_histogram_ref(sym, C)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0 or got.shape != (rows, C):
-            raise AssertionError(f"tile_histogram != plain at {(rows, length, C)}:"
-                                 f" max abs err {err}")
-        max_err = max(max_err, err)
-        if rows == 32:
-            times[C] = timings("tile_histogram_kernel",
-                               lambda: H.tile_histogram(sym, C),
-                               lambda: H.tile_histogram_ref(sym, C), 100, 20)
-    shapes = ", ".join(f"{s[:2]}/C={s[2]}" for s in SHAPES)
-    shown = "; ".join(f"(32, 32768) C={c}: {show(t)}"
-                      for c, t in times.items())
+    for rows, length, C in SHAPES + [(2, 32768, H.MAX_CLASSES)]:
+        for dtype in (torch.int32, torch.int64):
+            sym = torch.from_numpy(rng.integers(-1, C + 5, (rows, length))
+                                   ).to(dtype).to(dev)
+            cases = [("random", sym)]
+            if rows == 32:
+                cases.append(("skewed", (torch.arange(
+                    rows, device=dev).unsqueeze(1) * 7 % C).expand(
+                        rows, length).contiguous().to(dtype)))
+            for label, x in cases:
+                got = H.tile_histogram(x, C)
+                want = H.tile_histogram_ref(x, C)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                if err != 0 or got.shape != (rows, C) or got.dtype != dtype:
+                    raise AssertionError(
+                        f"tile_histogram != plain at {(rows, length, C)} "
+                        f"{dtype} {label}: max abs err {err}")
+                max_err = max(max_err, err)
+                if rows == 32 and (dtype == torch.int64 or label == "random"):
+                    key = (C, str(dtype).split(".")[-1], label)
+                    times[key] = hist_timings(H, x, C)
+                    if key == (286, "int64", "random"):
+                        main_sym = x
+    hist_ok = no_sync(lambda: H.tile_histogram(main_sym, 286))
+    if not torch.equal(hist_ok, H.tile_histogram_ref(main_sym, 286)):
+        raise AssertionError("tile_histogram under sync debug mode differs")
+    shapes = ", ".join(f"{s[:2]}/C={s[2]}"
+                       for s in SHAPES + [(2, 32768, H.MAX_CLASSES)])
+    shown = "; ".join(f"(32, 32768) C={c} {d} {lab}: {show(t)}; "
+                      f"torch.bincount of the flat row-offset index "
+                      f"{t['bincount_ms']:.4f} ms per call (context)"
+                      for (c, d, lab), t in times.items())
     print(f"phase 3 kernel: tolerance 0 (exact), max abs err {max_err} on "
-          f"{shapes}; {shown}")
+          f"{shapes}, int32 and int64, random and skewed rows; the wrapper "
+          f"ran under sync debug mode \"error\"; {shown}")
     torch.cuda.synchronize()
 
     # ------------------------------------------------------- 4. the slice
@@ -307,7 +276,12 @@ def main() -> int:
         "source": "deflate_compression_tpu_torch/csrc/tile_histogram.cu",
         "replaces": "deflate_compression_tpu/ops/histogram_pallas.py:74",
         "launches": launches, "max_abs_err": max_err,
-        **entry(times[286])}, *decode]}))
+        **entry(times[(286, "int64", "random")]), "library_ms": None,
+        "int32_ms": times[(286, "int32", "random")]["ms"],
+        "c30_ms": times[(30, "int64", "random")]["ms"],
+        "skewed_ms": times[(286, "int64", "skewed")]["ms"],
+        "context_bincount_ms": times[(286, "int64", "random")][
+            "bincount_ms"]}, *decode]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -315,11 +289,32 @@ def main() -> int:
 
 
 def entry(t: dict) -> dict:
-    """The times of a kernels-line entry from a `timings` result. Where a
-    call waits for the device, its device_ms includes the host; prof_ms is
-    then the device time."""
-    return {k: t[k] for k in ("ms", "plain_ms", "device_ms",
-                              "plain_device_ms", "prof_ms", "plain_prof_ms")}
+    """The times of a kernels-line entry from a `timings` result: `ms` and
+    `plain_ms` are device time per launch; where a call waits for the
+    device, its device_ms includes the host and prof_ms is the device
+    time."""
+    return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "share_of_bound", "call_ms", "plain_call_ms",
+                              "device_ms", "plain_device_ms", "prof_ms",
+                              "plain_prof_ms")}
+
+
+def hist_timings(H, sym, C: int) -> dict:
+    """tile_histogram's `timings` at sym, its bound (sym read once, the
+    counts written once) and, as context, one torch.bincount over the
+    already-flattened row-offset index (the plain version's core; not the
+    same function, which takes the symbols themselves)."""
+    rows, length = sym.shape
+    t = timings("tile_histogram_kernel", lambda: H.tile_histogram(sym, C),
+                lambda: H.tile_histogram_ref(sym, C), 100, 20,
+                (rows * length + rows * C) * sym.element_size())
+    s = sym.long()
+    s = torch.where((s >= 0) & (s < C), s, C)
+    flat = (torch.arange(rows, device=sym.device).unsqueeze(1) * (C + 1)
+            + s).reshape(-1)
+    t["bincount_ms"] = cuda_ms(
+        lambda: torch.bincount(flat, minlength=rows * (C + 1)))
+    return t
 
 
 def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
@@ -339,7 +334,7 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
 
     S = cfg.shard_size
     # ----------------------------------------------------------- 6. build
-    DS._load()
+    DS._bind()
     LG._bind()
     print(f"phase 6 build: {' and '.join(lib_names)} loaded; nvcc ran "
           f"alongside tile_histogram.cu, all done {t_build:.2f} s after the "
@@ -397,12 +392,31 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
     n_lanes = int(pf.ln.llive.sum())
     if not bool(got.done[pf.ln.llive].all()):
         raise AssertionError("decode_symbols: a live lane did not finish")
+    quiet = no_sync(lambda: DS.decode_symbols(*bargs))
+    same(quiet, got, "decode_symbols under sync debug mode")
+    # bytes the call must move: the stream, the lanes' state (bp, ocur,
+    # lane_end, lblk, lbad) read and results (done, bad, ocur) written, one
+    # table set per block with lanes, and the tokens' array written once
+    # (its zero-fill and the tokens: nearly every 32-byte sector of it
+    # takes a token)
+    NL = pf.ln.lblk.numel()
+    visit = (pf.ln.lblk >= 0) & (pf.ln.ocur < pf.ln.lane_end) & ~pf.ln.lbad
+    n_visit = int(visit.sum())
+    n_tblk = int(torch.unique(pf.ln.lblk[visit]).numel())
+    n_tok = int(((got.tok >> 25) & 1).sum())
+    ds_bytes = (len(body) + NL * (8 + 8 + 8 + 4 + 1) + NL * (1 + 1 + 8)
+                + n_tblk * TABLE_BYTES + 4 * got.tok.numel())
     ds_t = timings("decode_symbols_kernel",
                    lambda: DS.decode_symbols(*bargs),
-                   lambda: DS.decode_symbols_ref(*bargs), 20, 2)
+                   lambda: DS.decode_symbols_ref(*bargs), 20, 10, ds_bytes)
     print(f"phase 7 decode_symbols: tolerance 0 (exact); == plain on shards "
           f"0 and {nsh - 1} and the flat batch of {nsh} shards ({n_lanes} "
-          f"live lanes): {show(ds_t)}")
+          f"live lanes, {n_visit} decoded, {n_tblk} blocks with lanes, "
+          f"{n_tok} tokens, {ds_bytes} bytes to move); the wrapper ran "
+          f"under sync debug mode \"error\": {show(ds_t)} (device per "
+          f"launch: the whole call, the tokens' zero-fill included; the "
+          f"kernel alone is the profiler's); no single PyTorch call "
+          f"computes this function")
 
     rng = np.random.default_rng(11)
 
@@ -425,11 +439,15 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
                                   f"lut_gather {label} {shape}"))
         r = lg_t[label] = timings("lut_gather_kernel",
                                   lambda: LG.lut_gather(t, i),
-                                  lambda: LG.lut_gather_ref(t, i), 100, 20)
+                                  lambda: LG.lut_gather_ref(t, i), 100, 20,
+                                  4 * (shape[0] + 2 * shape[1]))
+        # the library call: one PyTorch indexing of the same inputs
+        r["library_ms"] = device_ms(lambda: t[i.long()], 100)[0]
         gbs = 8 * shape[1] / (r["device_ms"] * 1e-3) / 1e9
         copy_ms = device_ms(lambda: i.clone(), 100)[0]
         print(f"phase 7 lut_gather {label} {shape}: == tbl[idx], error 0; "
-              f"{show(r)}; {gbs:.1f} GB/s of index and output, "
+              f"{show(r)}; library tbl[idx.long()] {r['library_ms']:.4f} ms "
+              f"device; {gbs:.1f} GB/s of index and output, "
               f"{gbs / HBM_GBS:.3f} of {HBM_GBS:.0f} GB/s; a copy of idx "
               f"(the same bytes) {copy_ms:.4f} ms")
     torch.cuda.synchronize()
@@ -480,12 +498,17 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
         raise AssertionError("phase-by-phase decode differs")
 
     index = index_from_shards(*zip(*sink))
+    DS.decode_symbols.launches = LG.lut_gather.launches = 0
     t0 = time.perf_counter()
     got_raw = decompress_indexed(body, index, expected_adler=zlib.adler32(raw),
                                  device=dev)
     t_idx = time.perf_counter() - t0
+    idx_launches = (DS.decode_symbols.launches, LG.lut_gather.launches)
     if got_raw != raw:
         raise AssertionError("decompress_indexed != input")
+    if min(idx_launches) < 1:
+        raise AssertionError(f"decompress_indexed launched decode_symbols "
+                             f"and lut_gather {idx_launches} times")
 
     fraw = raw[:FOREIGN_BYTES]
     z9 = zlib.compress(fraw, 9)
@@ -511,7 +534,8 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
           f"lut_gather launches {lg_launches}; phases by CUDA events: A "
           f"{ph[0]:.2f} ms, B {ph[1]:.2f} ms, C {ph[2]:.2f} ms; "
           f"decompress_indexed with the encoder's index "
-          f"{len(raw) / t_idx / 1e6:.3f} MB/s ({index.n_subs} entries); "
+          f"{len(raw) / t_idx / 1e6:.3f} MB/s ({index.n_subs} entries; "
+          f"decode_symbols and lut_gather launches {idx_launches}); "
           f"foreign zlib-9 {len(fraw)} bytes: build_index "
           f"({'native' if native else 'python'}) {t_bi:.3f} s, "
           f"decompress_indexed {len(fraw) / t_f / 1e6:.3f} MB/s, OK; host "
@@ -592,12 +616,15 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
              "source": "deflate_compression_tpu_torch/csrc/decode_symbols.cu",
              "replaces": "tools/probe_pallas_r5.py:35",
              "launches": ds_launches, "max_abs_err": max_err,
-             **entry(ds_t)},
+             **entry(ds_t), "library_ms": None,
+             "kernel_ms": ds_t["prof_ms"]},
             {"name": "lut_gather", "route": "cuda",
              "source": "deflate_compression_tpu_torch/csrc/lut_gather.cu",
              "replaces": "tools/probe_pallas_r5.py:35",
              "launches": lg_launches, "max_abs_err": lg_err,
-             **entry(lg_t["block flags"])}]
+             **entry(lg_t["block flags"]),
+             "library_ms": lg_t["block flags"]["library_ms"],
+             "probe_ms": lg_t["probe"]["ms"]}]
 
 
 if __name__ == "__main__":

@@ -17,13 +17,15 @@ package so each counterpart is easy to find (the decoder's
     assert decompress_indexed(blob[2:-4], index) == data
 
 Parameters carried across: the codec has no weights and no random state.
-Its only state is the `CodecConfig` object and the fixed RFC 1951 tables,
-and both are taken unchanged from the JAX package
-(`deflate_compression_tpu.utils.config` and `.format.constants`, whose
-import chains are free of JAX), as are its error types; `build_index` calls
-the repository's native C++ index pass where it builds. The decoder's state
-is the stream words and the decode index, and the .dcx index bytes are the
-JAX package's.
+Its only state is the `CodecConfig` object and the fixed RFC 1951 tables.
+The port keeps its own copies of both (`utils/config.py`,
+`format/constants.py`) and of its error types (`utils/errors.py`), with the
+JAX package's fields, values and codes; it imports nothing of the JAX
+package. `build_index` calls the repository's native C++ index pass
+(`native/deflate_native.cpp`), which the port builds into its own `build/`
+directory (`native_bridge.py`), where a compiler is found. The decoder's
+state is the stream words and the decode index, and the .dcx index bytes
+are the JAX package's.
 
 Device stages are plain PyTorch on int64 tensors (u32 values carried in
 int64, see `core/u32.py`), except the hand-written CUDA kernels in `csrc/`:
@@ -40,15 +42,18 @@ and the indexed device decoder (`decode_blocks`, `decode_blocks_batch`,
 `decompress`, gzip, the self-check, the CLI and shards over 1 MB.
 """
 
-__all__ = ["CodecConfig", "CompressStats", "DeflateCodec", "ZlibCodec",
-           "make_codec", "compress_stream", "compress_file", "DecodeIndex",
+__all__ = ["CodecConfig", "DeflateError", "CompressStats", "DeflateCodec",
+           "ZlibCodec", "make_codec", "compress_stream", "compress_file", "DecodeIndex",
            "build_index", "index_from_shards", "decompress_indexed"]
 
 
 def __getattr__(name):
     if name == "CodecConfig":
-        from deflate_compression_tpu.utils.config import CodecConfig
+        from .utils.config import CodecConfig
         return CodecConfig
+    if name == "DeflateError":
+        from .utils.errors import DeflateError
+        return DeflateError
     if name in ("CompressStats", "DeflateCodec", "ZlibCodec", "make_codec",
                 "compress_stream", "compress_file"):
         from .models import codec

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from deflate_compression_tpu.format import constants as C
+from ..format import constants as C
 
 _TREE_FIXED = 17.0 + 3 * 15
 _TREE_PER_SYM = 5.5

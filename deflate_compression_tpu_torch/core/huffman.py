@@ -28,11 +28,11 @@ def histogram(symbols: torch.Tensor, num_classes: int,
 
 
 def histogram_rows(sym: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """Per-row histogram (M, L) -> (M, num_classes) int64 through the
-    tile_histogram kernel; symbols outside [0, num_classes) drop out.
-    Replaces the JAX one-hot matmul `histogram_rows_matmul`."""
-    return tile_histogram(sym.to(torch.int32).contiguous(),
-                          num_classes).long()
+    """Per-row histogram (M, L) -> (M, num_classes) through the
+    tile_histogram kernel, one launch and counts in sym's type (int64 from
+    the encoder); symbols outside [0, num_classes) drop out. Replaces the
+    JAX one-hot matmul `histogram_rows_matmul`."""
+    return tile_histogram(sym.contiguous(), num_classes)
 
 
 def _package_merge_lengths(leaf_w: torch.Tensor, k: torch.Tensor,

@@ -22,8 +22,7 @@ import math
 
 import torch
 
-from deflate_compression_tpu.format import constants as C
-
+from ..format import constants as C
 from . import scans
 from .u32 import mul32
 

@@ -36,10 +36,9 @@ import typing
 import numpy as np
 import torch
 
-from deflate_compression_tpu.format import constants as C
-
 from ..core.bits import reverse_bits
 from ..core.huffman import canonical_codes
+from ..format import constants as C
 from ..ops import decode_symbols as DS
 from ..ops.lut_gather import lut_gather
 

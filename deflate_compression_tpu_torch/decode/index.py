@@ -23,13 +23,13 @@ import struct
 import numpy as np
 import torch
 
-from deflate_compression_tpu.format import constants as C
-from deflate_compression_tpu.utils.errors import DeflateError
-
+from .. import native_bridge
 from ..core.bits import BitReader
 from ..core.checksum import adler32_combine, adler32_torch
 from ..core.huffman import decode_lut_np
 from ..device import pick_device
+from ..format import constants as C
+from ..utils.errors import DeflateError
 
 _MAGIC = b"DCXI"
 _VERSION = 2
@@ -96,11 +96,21 @@ class DecodeIndex:
             sb = subs["b"].astype(np.int64)
             so = subs["o"].astype(np.int64)
             sk = subs["k"].astype(np.int32)
+            _check_sub_order(so)
         return cls(bb, os_, bt, out_len, sb, so, sk)
 
     def block_for_offset(self, byte_off: int) -> int:
         """Random access: which block contains output byte `byte_off`."""
         return int(np.searchsorted(self.out_start, byte_off, "right") - 1)
+
+
+def _check_sub_order(sub_out) -> None:
+    """Raise E_INDEX where the sub-entries' output offsets decrease. The
+    device decoder ends each lane where the next entry starts, so entries
+    out of output order would give lanes that overlap, and the kernel's
+    16-byte token stores would then race."""
+    if sub_out is not None and (np.diff(sub_out) < 0).any():
+        raise DeflateError("E_INDEX", "sub-entries out of output order")
 
 
 def _read_dynamic_tables(r: BitReader):
@@ -161,7 +171,6 @@ def _read_dynamic_tables(r: BitReader):
 
 def native_available() -> bool:
     """Whether build_index can take the repository's native C++ pass."""
-    from deflate_compression_tpu import native_bridge
     return native_bridge.available()
 
 
@@ -171,7 +180,6 @@ def build_index(stream: bytes, bit_pos: int = 0, sub_size: int = SUB_SIZE,
     sub-entry every `sub_size` output bytes, found by decoding symbols but
     only counting output bytes."""
     if prefer_native and native_available():
-        from deflate_compression_tpu import native_bridge
         bb, bo, bt, sb, so, sk, out_len = native_bridge.build_index_native(
             bytes(stream), bit_pos, sub_size)
         return DecodeIndex(bb, bo, bt.astype(np.uint8), out_len, sb, so, sk)
@@ -303,6 +311,7 @@ def decompress_indexed(stream: bytes, index: DecodeIndex,
     from .device_inflate import decode_blocks
 
     dev = pick_device(device)
+    _check_sub_order(index.sub_out)
     W = C.WINDOW_SIZE
     n = index.n_blocks
     have_subs = index.n_subs > 0

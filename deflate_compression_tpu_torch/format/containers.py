@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from deflate_compression_tpu.format import constants as C
+from . import constants as C
 
 
 def zlib_header(window_size: int = C.WINDOW_SIZE, level_hint: int = 2) -> bytes:

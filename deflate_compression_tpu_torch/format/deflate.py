@@ -17,14 +17,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from deflate_compression_tpu.format import constants as C
-
 from ..core import bits as bits_mod
 from ..core import huffman, lz77
 from ..core.cost import block_plan
 from ..core import scans
 from ..core.u32 import low_mask, shl32
 from ..device import pick_device
+from . import constants as C
 
 BLOCK = C.WINDOW_SIZE            # 32768 input bytes per tile
 _RLE_SLOTS = 316                 # max hlit (286) + max hdist (30)

@@ -17,14 +17,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from deflate_compression_tpu.utils.config import CodecConfig, DEFAULT_CONFIG
-from deflate_compression_tpu.utils.errors import DeflateError
-
 from ..core import checksum
 from ..device import pick_device
 from ..decode.index import INDEX_STAT_FIELDS
 from ..format import containers
 from ..format.deflate import encode_shard, encode_shards, shard_bytes
+from ..utils.config import DEFAULT_CONFIG, CodecConfig
+from ..utils.errors import DeflateError
 
 
 @dataclasses.dataclass

@@ -5,7 +5,9 @@ plain C interface, at first use, into `build/` beside this package. The
 library's name carries a hash of the source, so an edited source is never
 served from a stale build. A `Build` launches nvcc and returns at once, so
 several sources can compile together; `load()` builds (or reuses) a
-library and binds the named C functions through ctypes.
+library and binds the named C functions through ctypes. The kernels'
+wrappers pass `raw_stream()`'s handle, so each launch goes on PyTorch's
+current stream.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -70,6 +74,16 @@ class Build:
 def build(source: Path) -> Path:
     """Compile `source` if it is not built yet; return the library path."""
     return Build(source).wait()
+
+
+def raw_stream():
+    """A function of a device index that returns the handle of its current
+    CUDA stream as an int (PyTorch's raw lookup where it has one)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        def raw(i):
+            return torch.cuda.current_stream(i).cuda_stream
+    return raw
 
 
 def load(source: Path, functions: dict) -> ctypes.CDLL:

@@ -10,6 +10,10 @@ stream.
 `decode_symbols` launches its kernel for CUDA tensors and raises if it
 cannot; it takes the plain version `decode_symbols_ref` only for tensors
 that lie on the CPU. `decode_symbols.launches` counts kernel launches.
+On a CUDA tensor the wrapper never waits for the device: it zeroes the
+tokens, allocates the lanes' results and launches; the kernel groups each
+CTA's lanes by block itself (`cta_rounds` is that schedule in plain torch)
+and takes the symbols' payloads from its constant memory.
 
 Tables (one row per coding block, built by decode/device_inflate.py's
 phase A): a 2^11-entry primary LUT per alphabet whose entry is the symbol's
@@ -21,13 +25,13 @@ the count of codes per length and the symbols in canonical order.
 from __future__ import annotations
 
 import ctypes
+import functools
 import typing
 
 import numpy as np
 import torch
 
-from deflate_compression_tpu.format import constants as C
-
+from ..format import constants as C
 from . import cuda_build
 
 SOURCE = cuda_build.CSRC / "decode_symbols.cu"
@@ -37,7 +41,8 @@ LONG_CODE = 1 << 30
 MAX_BITS = 15
 N_LL = 288                       # decode-side litlen alphabet (286/287 bad)
 N_D = 32                         # decode-side dist alphabet (30/31 bad)
-THREADS = 128                    # lanes per CTA (kThreads in the source)
+THREADS = 256                    # lanes per CTA (kThreads in the source)
+TABLE_SETS = 2                   # blocks' tables staged per round (kSets)
 
 # Static per-symbol payloads (the JAX decoder's _LL_PAY_STATIC /
 # _D_PAY_STATIC). litlen: value(9: literal byte or length base) |
@@ -78,21 +83,16 @@ class SymbolResult(typing.NamedTuple):
     ocur: torch.Tensor           # i64[NL] final output cursor
 
 
-def _load():
+@functools.cache
+def _bind():
+    """The kernel's launch function, bound once, and the raw current-stream
+    lookup."""
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    return cuda_build.load(SOURCE, {
-        "decode_symbols_launch": [vp, i64, vp, vp, vp, vp, vp, vp, vp, i64,
-                                  vp, vp, vp, vp, vp, vp, vp, vp, i64, i64,
-                                  i64, i64, vp, vp, vp, vp, vp]})
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _check_cuda(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    lib = cuda_build.load(SOURCE, {
+        "decode_symbols_launch": [vp, i64, vp, vp, vp, vp, vp, i64, i64, vp,
+                                  vp, vp, vp, vp, vp, i64, i64, i64, i64, vp,
+                                  vp, vp, vp, ctypes.c_int, vp]})
+    return lib.decode_symbols_launch, cuda_build.raw_stream()
 
 
 # ------------------------------------------------------------ symbol decode
@@ -207,31 +207,26 @@ def decode_symbols_ref(words, bp, ocur, lane_end, lblk, lbad,
     return SymbolResult(tok, done, bad, ocur)
 
 
-def _cta_plan(lblk, visit, n_blocks: int):
-    """Group the visited lanes by block into CTAs of THREADS lanes: the
-    lanes in block order, and per CTA its block (-1: idle), its first
-    position in that order and its lane count. The grid size is a static
-    bound (every block wastes less than one CTA), so nothing here waits
-    for the device."""
-    dev = lblk.device
+def cta_rounds(lblk, visit, n_blocks: int, threads: int = THREADS):
+    """The kernel's schedule, in plain torch: CTA c takes lanes
+    [c * threads, (c + 1) * threads) in their own order; each round it
+    stages the tables of the TABLE_SETS smallest blocks still pending among
+    its visited lanes and decodes those lanes. Returns, per CTA, the list
+    of rounds, each a list of (block, lane ids decoded with its tables)."""
     NL = lblk.shape[0]
-    NB = n_blocks
-    key = torch.where(visit, lblk.long(), NB)
-    order = torch.argsort(key, stable=True).to(torch.int32)
-    cnt = torch.bincount(key, minlength=NB + 1)[:NB]
-    ncta = (cnt + THREADS - 1) // THREADS
-    cta_end = torch.cumsum(ncta, 0)
-    G = NL // THREADS + NB + 1
-    c = torch.arange(G, device=dev)
-    cb = torch.searchsorted(cta_end, c, right=True)
-    cbc = cb.clamp(max=NB - 1)
-    seg = torch.cumsum(cnt, 0) - cnt
-    k = c - (cta_end - ncta)[cbc]
-    first = seg[cbc] + k * THREADS
-    ccnt = (cnt[cbc] - k * THREADS).clamp(0, THREADS)
-    cta_blk = torch.where(cb < NB, cbc, -1)
-    return (order, cta_blk.to(torch.int32), first.to(torch.int32),
-            ccnt.to(torch.int32), G)
+    key = torch.where(visit & (lblk < n_blocks), lblk.long(), -1).tolist()
+    ctas = []
+    for c0 in range(0, NL, threads):
+        pending = {i: key[i] for i in range(c0, min(NL, c0 + threads))
+                   if key[i] >= 0}
+        rounds = []
+        while pending:
+            blocks = sorted(set(pending.values()))[:TABLE_SETS]
+            rounds.append([(b, [i for i, k in pending.items() if k == b])
+                           for b in blocks])
+            pending = {i: k for i, k in pending.items() if k not in blocks}
+        ctas.append(rounds)
+    return ctas
 
 
 def _check_decode(words, bp, ocur, lane_end, lblk, lbad, tables):
@@ -279,35 +274,27 @@ def decode_symbols(words, bp, ocur, lane_end, lblk, lbad,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     S = int(out_size)
-    NB = tables.ll_lut.shape[0]
-    live = lblk >= 0
-    done = ~live | (ocur >= lane_end)
-    visit = ~done & ~lbad
+    NL = bp.shape[0]
     tok = torch.zeros(S + 1, dtype=torch.int32, device=dev)
-    bad = lbad.clone()
-    ocur_out = ocur.clone()
-    if bp.shape[0] == 0 or NB == 0:
+    done = torch.empty(NL, dtype=torch.bool, device=dev)
+    bad = torch.empty(NL, dtype=torch.bool, device=dev)
+    ocur_out = torch.empty(NL, dtype=torch.int64, device=dev)
+    if NL == 0:
         return SymbolResult(tok, done, bad, ocur_out)
-    order, cta_blk, cta_first, cta_cnt, G = _cta_plan(lblk, visit, NB)
-    ll_pay = torch.as_tensor(LL_PAY, device=dev)
-    d_pay = torch.as_tensor(D_PAY, device=dev)
-    words = words.contiguous()
-    bp, ocur, lane_end = bp.contiguous(), ocur.contiguous(), \
-        lane_end.contiguous()
-    lib = _load()
-    with torch.cuda.device(dev):
-        rc = lib.decode_symbols_launch(
-            words.data_ptr(), words.shape[0], bp.data_ptr(), ocur.data_ptr(),
-            lane_end.data_ptr(), order.data_ptr(), cta_blk.data_ptr(),
-            cta_first.data_ptr(), cta_cnt.data_ptr(), G,
-            tables.ll_lut.data_ptr(), tables.d_lut.data_ptr(),
-            tables.ll_cnt.data_ptr(), tables.d_cnt.data_ptr(),
-            tables.ll_sym.data_ptr(), tables.d_sym.data_ptr(),
-            ll_pay.data_ptr(), d_pay.data_ptr(), int(max_dist),
-            int(bit_budget), S, int(max_steps), tok.data_ptr(),
-            done.data_ptr(), bad.data_ptr(), ocur_out.data_ptr(),
-            _stream(dev))
-    _check_cuda(rc, "decode_symbols")
+    words, bp, ocur, lane_end, lblk, lbad = (
+        x.contiguous() for x in (words, bp, ocur, lane_end, lblk, lbad))
+    # the kernel stages each table row with one bulk copy: 16-byte aligned
+    t = [x if x.data_ptr() % 16 == 0 else x.clone() for x in tables]
+    launch, stream = _bind()
+    rc = launch(words.data_ptr(), words.shape[0], bp.data_ptr(),
+                ocur.data_ptr(), lane_end.data_ptr(), lblk.data_ptr(),
+                lbad.data_ptr(), NL, tables.ll_lut.shape[0],
+                *(x.data_ptr() for x in t), int(max_dist), int(bit_budget), S,
+                int(max_steps), tok.data_ptr(), done.data_ptr(),
+                bad.data_ptr(), ocur_out.data_ptr(), dev.index,
+                stream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"decode_symbols launch failed: cudaError {rc}")
     decode_symbols.launches += 1
     return SymbolResult(tok, done, bad, ocur_out)
 

@@ -32,11 +32,7 @@ def _bind():
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     lib = cuda_build.load(SOURCE, {"lut_gather_launch": [
         vp, vp, vp, i64, i64, ctypes.c_int, vp]})
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        def raw(i):
-            return torch.cuda.current_stream(i).cuda_stream
-    return lib.lut_gather_launch, raw
+    return lib.lut_gather_launch, cuda_build.raw_stream()
 
 
 def _check(tbl: torch.Tensor, idx: torch.Tensor) -> None:

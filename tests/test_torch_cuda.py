@@ -42,6 +42,61 @@ def test_tile_histogram_kernel_matches_plain(cuda, rows, nc):
     assert torch.equal(got, H.tile_histogram_ref(sym, nc))
 
 
+def _hist_rows(rows, length, nc, dtype, seed, offset=0):
+    """Symbols in [-3, nc + 3) on the card; row 0 holds one symbol only and
+    row 1 (if any) only symbols outside [0, nc). With an offset the rows
+    start that many elements into their buffer, off 16-byte alignment."""
+    rng = np.random.default_rng(seed)
+    sym = rng.integers(-3, nc + 3, rows * length + offset)
+    v = sym[offset:].reshape(rows, length)
+    v[0] = nc // 2
+    if rows > 1:
+        v[1] = rng.choice([-1, nc, nc + 7, -2**31], length)
+    t = torch.from_numpy(sym).to(dtype)
+    return t.cuda()[offset:].view(rows, length)
+
+
+def _same_hist(sym, nc):
+    before = H.tile_histogram.launches
+    got = H.tile_histogram(sym, nc)
+    torch.cuda.synchronize()
+    assert H.tile_histogram.launches == before + 1
+    assert got.dtype == sym.dtype and got.shape == (sym.shape[0], nc)
+    assert torch.equal(got, H.tile_histogram_ref(sym, nc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("rows", [1, 17, 32, 64])
+@pytest.mark.parametrize("nc", [1, 30, 286, H.MAX_CLASSES])
+def test_tile_histogram_kernel_types_rows_classes(cuda, dtype, rows, nc):
+    _same_hist(_hist_rows(rows, 32768, nc, dtype, rows * nc), nc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("length,offset", [(32771, 0), (32771, 1),
+                                           (4099, 3), (1, 0), (7, 2)])
+def test_tile_histogram_kernel_unaligned_rows(cuda, dtype, length, offset):
+    """Row lengths off a multiple of the vector width, and rows that start
+    off a 16-byte boundary: the kernel's scalar head and tail."""
+    _same_hist(_hist_rows(5, length, 286, dtype, length, offset), 286)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,length", [(300, 32768), (32, 4096),
+                                         (128, 32768), (32, 8192),
+                                         (64, 32768), (32, 16384)])
+def test_tile_histogram_kernel_cluster_sizes(cuda, rows, length):
+    """Shapes for which the launcher splits a row over 1, 2 and 4 CTAs
+    (32 full rows take 8), on the encoder's int64 symbols and int32, with
+    a row of one symbol."""
+    sym = _hist_rows(rows, length, 286, torch.int64, rows + length)
+    sym[2] = 285
+    _same_hist(sym, 286)
+    _same_hist(sym.int(), 30)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("size,valid_len,final", [(65536, 65536, True),
                                                   (1 << 20, 700001, False)])
@@ -87,6 +142,105 @@ def test_decode_symbols_kernel_matches_plain(cuda):
     for g, x in zip(got, want):
         assert torch.equal(g, x)
     assert bool(got.done[p.ln.llive].all())
+
+
+def _foreign_args(cuda, mutate=0):
+    """decode_symbols arguments on the card for a zlib-9 stream of skewed
+    bytes (codes over 11 bits), with `mutate` seeded bit flips."""
+    rng = np.random.default_rng(9)
+    alphabet = np.frombuffer(b"abcdefgh" * 4 + b"\x00" * 200, np.uint8)
+    raw = rng.choice(alphabet, 300_000).tobytes()
+    body = zlib.compress(raw, 9)[2:-4]
+    idx = tidx.build_index(body, prefer_native=False)
+    words = np.frombuffer(body + bytes(-len(body) % 4 + 4), np.int32).copy()
+    for _ in range(mutate):
+        i = int(rng.integers(0, len(words) - 1))
+        words[i] ^= np.int32(1 << int(rng.integers(0, 31)))
+    p = DI.plan(torch.from_numpy(words).to(cuda), idx.bit_base, idx.out_start,
+                idx.btype.astype(np.int64), idx.n_blocks, idx.sub_bit,
+                idx.sub_out, idx.sub_blk.astype(np.int64), idx.n_subs,
+                idx.out_len)
+    return DI.phase_b_args(p, idx.out_len, 32768)
+
+
+def _same_symbols(args):
+    before = DS.decode_symbols.launches
+    got = DS.decode_symbols(*args)
+    torch.cuda.synchronize()
+    assert DS.decode_symbols.launches == before + 1
+    want = DS.decode_symbols_ref(*args)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutate", [0, 1, 8])
+def test_decode_symbols_kernel_foreign_15bit_stream(cuda, mutate):
+    """A zlib-9 stream with codes over 11 bits (the long-code walk), clean
+    and with seeded bit flips: the kernel equals its plain version."""
+    got = _same_symbols(_foreign_args(cuda, mutate))
+    if not mutate:
+        assert not bool(got.bad.any())
+
+
+@pytest.mark.cuda
+def test_decode_symbols_kernel_block_over_one_cta(cuda):
+    """A fixed-Huffman stream of blocks with more lanes than one CTA takes
+    (THREADS): a block's lanes go to several CTAs, and CTAs hold lanes of
+    two blocks."""
+    raw = bytes(np.random.default_rng(4).integers(97, 123, 200_000,
+                                                  dtype=np.uint8))
+    co = zlib.compressobj(1, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+    body = co.compress(raw) + co.flush()
+    idx = tidx.build_index(body, sub_size=16)
+    per_block = np.bincount(idx.sub_blk)
+    assert per_block.max() > DS.THREADS
+    words = np.frombuffer(body + bytes(-len(body) % 4 + 4), np.int32)
+    p = DI.plan(torch.from_numpy(words.copy()).to(cuda), idx.bit_base,
+                idx.out_start, idx.btype.astype(np.int64), idx.n_blocks,
+                idx.sub_bit, idx.sub_out, idx.sub_blk.astype(np.int64),
+                idx.n_subs, idx.out_len)
+    got = _same_symbols(DI.phase_b_args(p, idx.out_len, 32768))
+    assert bool(got.done[p.ln.llive].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["reversed", "shuffled"])
+def test_decode_symbols_kernel_lanes_in_any_order(cuda, order):
+    """Lanes listed out of block order: CTAs hold lanes of many blocks and
+    stage their tables over several rounds; the result is the same."""
+    b, valid = _batch()
+    S = 1 << 18
+    flat = DI.flat_batch(*(b[k].to(cuda) for k in BATCH_KEYS), valid, S)
+    args = list(DI.phase_b_args(DI.plan(**flat), len(valid) * S, 32768))
+    NL = args[1].shape[0]
+    perm = (torch.arange(NL - 1, -1, -1) if order == "reversed" else
+            torch.from_numpy(np.random.default_rng(1).permutation(NL)))
+    perm = perm.to(cuda)
+    for i in range(1, 6):
+        args[i] = args[i][perm].contiguous()
+    _same_symbols(args)
+
+
+@pytest.mark.cuda
+def test_wrappers_do_not_synchronize(cuda):
+    """Both redesigned wrappers launch with no host synchronisation."""
+    sym = _hist_rows(32, 32768, 286, torch.int64, 1)
+    args = _foreign_args(cuda)
+    H.tile_histogram(sym, 286)
+    DS.decode_symbols(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist = H.tile_histogram(sym, 286)
+        res = DS.decode_symbols(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(hist, H.tile_histogram_ref(sym, 286))
+    for g, x in zip(res, DS.decode_symbols_ref(*args)):
+        assert torch.equal(g, x)
 
 
 @pytest.mark.cuda

@@ -364,3 +364,55 @@ def test_lut_gather_cpu_is_plain_take():
     assert LG.lut_gather.launches == before
     with pytest.raises(ValueError):
         LG.lut_gather(tbl[:1000], idx)
+
+
+def _old_cta_plan(lblk, visit, NB, threads=128):
+    """The plan of the first kernel (128 lanes per CTA, per-block counts by
+    bincount), as it was: the reference of the lane-to-block assignment."""
+    NL = lblk.shape[0]
+    key = torch.where(visit, lblk.long(), NB)
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    cnt = torch.bincount(key, minlength=NB + 1)[:NB]
+    ncta = (cnt + threads - 1) // threads
+    cta_end = torch.cumsum(ncta, 0)
+    G = NL // threads + NB + 1
+    c = torch.arange(G)
+    cb = torch.searchsorted(cta_end, c, right=True)
+    cbc = cb.clamp(max=NB - 1)
+    seg = torch.cumsum(cnt, 0) - cnt
+    k = c - (cta_end - ncta)[cbc]
+    first = seg[cbc] + k * threads
+    ccnt = (cnt[cbc] - k * threads).clamp(0, threads)
+    cta_blk = torch.where(cb < NB, cbc, -1)
+    return [(int(b), order[f:f + n].tolist())
+            for b, f, n in zip(cta_blk.tolist(), first.tolist(),
+                               ccnt.tolist()) if b >= 0]
+
+
+@pytest.mark.parametrize("NL,NB,seed", [(1, 1, 0), (300, 7, 1),
+                                        (5000, 3, 2), (20000, 288, 3),
+                                        (3000, 40_000, 4), (2000, 5, 5)])
+def test_cta_rounds_assign_lanes_like_the_old_plan(NL, NB, seed):
+    """The kernel's schedule decodes the lanes the first kernel's plan
+    visited, each once, with its own block's tables; a round stages at
+    most TABLE_SETS blocks, and lanes listed block by block (the index's
+    order) take one round for every TABLE_SETS blocks in a CTA."""
+    rng = np.random.default_rng(seed)
+    lblk = torch.from_numpy(rng.integers(-1, NB, NL).astype(np.int32))
+    if seed % 2:
+        lblk = lblk.sort().values             # the decoder's usual order
+    visit = (lblk >= 0) & torch.from_numpy(rng.random(NL) < 0.9)
+    old = sorted((i, b) for b, lanes in _old_cta_plan(lblk, visit, NB)
+                 for i in lanes)
+    ctas = DS.cta_rounds(lblk, visit, NB)
+    new = sorted((i, b) for rounds in ctas for rnd in rounds
+                 for b, lanes in rnd for i in lanes)
+    assert new == old
+    assert len(ctas) == -(-NL // DS.THREADS)
+    for c, rounds in enumerate(ctas):
+        for rnd in rounds:
+            assert 1 <= len(rnd) <= DS.TABLE_SETS
+            assert all(c * DS.THREADS <= i < (c + 1) * DS.THREADS
+                       for _, lanes in rnd for i in lanes)
+        n_blocks = len({b for rnd in rounds for b, _ in rnd})
+        assert len(rounds) == -(-n_blocks // DS.TABLE_SETS)

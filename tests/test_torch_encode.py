@@ -15,6 +15,7 @@ from deflate_compression_tpu.utils.config import CodecConfig
 from deflate_compression_tpu_torch import corpus
 from deflate_compression_tpu_torch.format import deflate as td
 from deflate_compression_tpu_torch.models import codec as tcodec
+from deflate_compression_tpu_torch.utils.config import CodecConfig as TCodecConfig
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)
@@ -97,7 +98,8 @@ def test_zlib_codec_matches_jax_three_shards():
     cfg = CodecConfig(shard_size=S)
     raw = corpus.build_corpus(2 * S + 20000, seed=5)
     want, wst = jcodec.ZlibCodec(cfg).compress(raw, return_stats=True)
-    got, gst = tcodec.ZlibCodec(cfg, device="cpu").compress(
+    got, gst = tcodec.ZlibCodec(TCodecConfig(shard_size=S),
+                                device="cpu").compress(
         raw, return_stats=True)
     assert got == want
     assert zlib.decompress(got) == raw
@@ -109,6 +111,6 @@ def test_zlib_codec_matches_jax_three_shards():
 
 
 def test_empty_input_matches_jax():
-    cfg = CodecConfig(shard_size=S)
-    assert tcodec.ZlibCodec(cfg, device="cpu").compress(b"") == \
-        jcodec.ZlibCodec(cfg).compress(b"")
+    assert tcodec.ZlibCodec(TCodecConfig(shard_size=S),
+                            device="cpu").compress(b"") == \
+        jcodec.ZlibCodec(CodecConfig(shard_size=S)).compress(b"")

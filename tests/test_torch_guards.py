@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: it runs where JAX is absent, and it never
-moves to the CPU on its own."""
+"""Guards of the PyTorch port: it runs where JAX and the JAX package are
+absent, and it never moves to the CPU on its own."""
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -15,25 +16,38 @@ ROOT = Path(__file__).resolve().parent.parent
 _NO_JAX = r"""
 import sys, zlib
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["deflate_compression_tpu"] = None    # and so does the JAX package
 import numpy as np
 import deflate_compression_tpu_torch
+from deflate_compression_tpu_torch import CodecConfig, DeflateError
 from deflate_compression_tpu_torch.models.codec import ZlibCodec
-from deflate_compression_tpu.utils.config import CodecConfig
 data = (b"a jax-free encode of one 32 KB shard. " * 1000)[:32768]
 blob = ZlibCodec(CodecConfig(shard_size=32768), device="cpu").compress(data)
 assert zlib.decompress(blob) == data
-from deflate_compression_tpu_torch.decode.index import (build_index,
-                                                        decompress_indexed)
+from deflate_compression_tpu_torch.decode.index import (
+    build_index, decompress_indexed, native_available)
 from deflate_compression_tpu_torch.models.codec import compress_stream
 sink = []
 body = b"".join(compress_stream([data], CodecConfig(shard_size=32768,
                                                     container="raw"),
                                 index_sink=sink, device="cpu"))
-idx = build_index(body, prefer_native=False)
+assert native_available()
+idx = build_index(body)
+py_idx = build_index(body, prefer_native=False)
+assert idx.to_bytes() == py_idx.to_bytes()
 assert decompress_indexed(body, idx, expected_adler=zlib.adler32(data),
                           device="cpu") == data
+try:
+    decompress_indexed(body, idx, expected_adler=zlib.adler32(data) ^ 1,
+                       device="cpu")
+except DeflateError:
+    pass
+else:
+    raise AssertionError("adler mismatch not raised")
 assert sys.modules["jax"] is None
-assert not any(m.startswith("jax.") for m in sys.modules), "jax submodule"
+assert sys.modules["deflate_compression_tpu"] is None
+assert not any(m.startswith(("jax.", "deflate_compression_tpu."))
+               for m in sys.modules), "a blocked package's submodule"
 print("NOJAX_OK", len(blob))
 """
 
@@ -45,13 +59,31 @@ def test_port_imports_and_encodes_without_jax():
     assert "NOJAX_OK" in res.stdout
 
 
+# `import jax`, `from jax...`, and the same of the JAX package (whose name
+# is the port's without `_torch`)
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|deflate_compression_tpu)(\.|\s|$)")
+
+
 def test_port_sources_do_not_import_jax():
-    for p in [ROOT / "chip_smoke.py",
+    for p in [ROOT / "chip_smoke.py", ROOT / "kernel_turns.py",
               *sorted((ROOT / "deflate_compression_tpu_torch").rglob("*.py"))]:
         for line in p.read_text().splitlines():
-            s = line.strip()
-            assert not (s.startswith("import jax") or s.startswith("from jax")), \
-                f"{p}: {line}"
+            assert not _FORBIDDEN.match(line), f"{p}: {line}"
+
+
+@pytest.mark.parametrize("line,bad", [
+    ("import jax", True), ("from jax import numpy", True),
+    ("    import jax.numpy as jnp", True),
+    ("from deflate_compression_tpu.format import constants", True),
+    ("from deflate_compression_tpu import native_bridge", True),
+    ("import deflate_compression_tpu", True),
+    ("from deflate_compression_tpu_torch.ops import histogram", False),
+    ("import deflate_compression_tpu_torch", False),
+    ("# from deflate_compression_tpu.x import y", False),
+])
+def test_source_scan_pattern(line, bad):
+    assert bool(_FORBIDDEN.match(line)) == bad
 
 
 def test_pick_device_raises_without_cuda(monkeypatch):

@@ -12,14 +12,15 @@ import torch
 
 from deflate_compression_tpu.core.checksum import adler32_jax
 from deflate_compression_tpu.decode import index as jidx
-from deflate_compression_tpu.utils.config import CodecConfig
-from deflate_compression_tpu.utils.errors import DeflateError
+from deflate_compression_tpu.utils.errors import DeflateError as JaxDeflateError
 from deflate_compression_tpu_torch import corpus
 from deflate_compression_tpu_torch.core.checksum import (adler32_combine,
                                                          adler32_torch)
 from deflate_compression_tpu_torch.decode import index as tidx
 from deflate_compression_tpu_torch.format import deflate as td
 from deflate_compression_tpu_torch.models import codec as tcodec
+from deflate_compression_tpu_torch.utils.config import CodecConfig
+from deflate_compression_tpu_torch.utils.errors import DeflateError
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)
@@ -72,6 +73,28 @@ def test_index_bytes_cross_read():
     assert tidx.DecodeIndex.from_bytes(v1.to_bytes()).sub_bit.size == 0
     with pytest.raises(DeflateError):
         tidx.DecodeIndex.from_bytes(b"XXXX" + blob[4:])
+
+
+def test_index_with_sub_entries_out_of_output_order_rejected():
+    """Sub-entries whose output offsets decrease would give the decoder
+    overlapping lanes: reading such an index, or decoding with it, raises
+    E_INDEX; the same index in order decodes."""
+    comp = zlib.compress(TEXT[:90_000], 9)[2:-4]
+    idx = tidx.build_index(comp, sub_size=4096)
+    assert idx.n_subs > 3
+    so = idx.sub_out.copy()
+    so[1], so[2] = so[2], so[1]
+    bad = tidx.DecodeIndex(idx.bit_base, idx.out_start, idx.btype,
+                           idx.out_len, idx.sub_bit, so, idx.sub_blk)
+    with pytest.raises(DeflateError) as e:
+        tidx.DecodeIndex.from_bytes(bad.to_bytes())
+    assert e.value.name == "E_INDEX"
+    with pytest.raises(DeflateError) as e:
+        tidx.decompress_indexed(comp, bad, device="cpu")
+    assert e.value.name == "E_INDEX"
+    assert tidx.decompress_indexed(
+        comp, tidx.DecodeIndex.from_bytes(idx.to_bytes()),
+        device="cpu") == TEXT[:90_000]
 
 
 def test_index_from_shards_and_stream_sink_match_jax():
@@ -153,7 +176,7 @@ def test_decompress_indexed_adler_mismatch_raises_like_jax():
     with pytest.raises(DeflateError):
         tidx.decompress_indexed(comp, idx, expected_adler=good ^ 0x10000,
                                 device="cpu")
-    with pytest.raises(DeflateError):
+    with pytest.raises(JaxDeflateError):
         jidx.decompress_indexed(comp, jidx.build_index(comp),
                                 expected_adler=good ^ 0x10000)
 
@@ -189,7 +212,7 @@ def test_window_violation_rejected_like_jax():
     idx = tidx.build_index(body)
     with pytest.raises(DeflateError):
         tidx.decompress_indexed(body, idx, max_dist=512, device="cpu")
-    with pytest.raises(DeflateError):
+    with pytest.raises(JaxDeflateError):
         jidx.decompress_indexed(body, jidx.build_index(body), max_dist=512)
     assert tidx.decompress_indexed(body, idx, max_dist=32768,
                                    device="cpu") == WDATA
