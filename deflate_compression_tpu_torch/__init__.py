@@ -1,5 +1,6 @@
 """deflate-compression-tpu, ported to PyTorch: the shard encoder and the
-indexed decoder on a CUDA card.
+indexed decoder on a CUDA card, with the codec's host decode, verifier,
+PNG decoder and trace around them.
 
 This package is the PyTorch counterpart of `deflate_compression_tpu` (the
 JAX package, which stays the reference). Module names mirror the JAX
@@ -35,31 +36,41 @@ block-flag gather (`ops/lut_gather.py`).
 Runs on `device="cpu"` take each kernel's plain PyTorch version; a CUDA
 tensor always goes through the kernel.
 
-Covered: `encode_shard` for shards up to 1 MB, the raw and zlib codecs'
-`compress`, `compress_stream` / `compress_file` with the encoder's index,
-and the indexed device decoder (`decode_blocks`, `decode_blocks_batch`,
-`decompress_indexed`, `build_index`). Not yet ported: the codecs' host
-`decompress`, gzip, the self-check, the CLI and shards over 1 MB.
+Covered: `encode_shard` for shards of any multiple of 32 KB; the raw, zlib
+and gzip codecs' `compress` on the card and `decompress` on the host
+(`decode/inflate.py`, the native inflater where it builds), with the
+self-check and the codec's metrics; `compress_stream` / `compress_file`
+with the encoder's index; the indexed device decoder (`decode_blocks`,
+`decode_blocks_batch`, `decompress_indexed`, `build_index`); the stream
+verifier (`decode/verify.py`), CRC-32 and the gzip container, the PNG
+decoder (`png/decoder.py`), the adaptive Huffman tree (`core/aht.py`) and
+the per-symbol trace (`utils/trace.py`, tokenized on the card). Host
+modules are copies of the JAX package's, with its names and outputs. Not
+yet ported: the distributed encode with checkpoint/resume, the CLI and the
+port's bench.
 """
 
-__all__ = ["CodecConfig", "DeflateError", "CompressStats", "DeflateCodec",
-           "ZlibCodec", "make_codec", "compress_stream", "compress_file", "DecodeIndex",
-           "build_index", "index_from_shards", "decompress_indexed"]
+__all__ = ["CodecConfig", "DeflateError", "PngError", "CompressStats",
+           "DeflateCodec", "ZlibCodec", "GzipCodec", "make_codec",
+           "compress_stream", "compress_file", "DecodeIndex", "build_index",
+           "index_from_shards", "decompress_indexed", "verify_stream",
+           "png_decode", "per_symbol_trace_csv"]
+
+_HOMES = {
+    "CodecConfig": "utils.config", "DeflateError": "utils.errors",
+    "PngError": "utils.errors", "verify_stream": "decode.verify",
+    "png_decode": "png.decoder", "per_symbol_trace_csv": "utils.trace",
+    **dict.fromkeys(("CompressStats", "DeflateCodec", "ZlibCodec",
+                     "GzipCodec", "make_codec", "compress_stream",
+                     "compress_file"), "models.codec"),
+    **dict.fromkeys(("DecodeIndex", "build_index", "index_from_shards",
+                     "decompress_indexed"), "decode.index"),
+}
 
 
 def __getattr__(name):
-    if name == "CodecConfig":
-        from .utils.config import CodecConfig
-        return CodecConfig
-    if name == "DeflateError":
-        from .utils.errors import DeflateError
-        return DeflateError
-    if name in ("CompressStats", "DeflateCodec", "ZlibCodec", "make_codec",
-                "compress_stream", "compress_file"):
-        from .models import codec
-        return getattr(codec, name)
-    if name in ("DecodeIndex", "build_index", "index_from_shards",
-                "decompress_indexed"):
-        from .decode import index
-        return getattr(index, name)
+    if name in _HOMES:
+        import importlib
+        return getattr(importlib.import_module(f".{_HOMES[name]}", __name__),
+                       name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

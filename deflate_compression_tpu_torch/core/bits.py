@@ -121,6 +121,15 @@ class BitReader:
         chunk = int.from_bytes(self.data[byte0:byte0 + nbytes], "little")
         return (chunk >> (pos & 7)) & ((1 << n) - 1)
 
+    def read_bytes(self, n: int) -> bytes:
+        """Read n whole bytes from a byte-aligned cursor."""
+        assert self.pos % 8 == 0, "read_bytes requires byte alignment"
+        start = self.pos >> 3
+        if start + n > len(self.data):
+            raise EOFError("byte stream exhausted")
+        self.pos += 8 * n
+        return self.data[start:start + n]
+
     def skip(self, n: int) -> None:
         self.pos += n
 

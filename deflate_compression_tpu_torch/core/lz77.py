@@ -5,16 +5,20 @@ deflate_compression_tpu/core/lz77.py, fold-preselect branch).
      2^32);
   2. one stable argsort by hash: a position's K nearest earlier same-hash
      positions are its K sorted predecessors, scored on an 11-byte prefix
-     with shifted-slice compares; nearest wins ties through the packed key
-     (nbytes+1) << 26 | (K-k) << 20 | cand;
+     with shifted-slice compares; the longest prefix wins, then the nearest
+     (smallest k), through the packed int64 key
+     (nbytes+1) << 40 | (K-k) << 32 | cand;
   3. the winner is rescored exactly to 35 bytes in position order;
   4. constant runs are found exactly with two scans, matches chain to 258
      bytes, tokens are clamped at 32 KB tile boundaries, two-step lazy;
   5. greedy parse: the chosen token starts are the orbit of 0 under
      next[i] = i + len[i], found by pointer doubling.
 
-All values are int64 tensors (u32 values carried as in core/u32.py).
-Shards over 1 MB (the JAX sorted-order branch) are not ported yet.
+All values are int64 tensors (u32 values carried as in core/u32.py). The
+key's 32-bit candidate field serves any shard size, so one code path picks
+the winner the JAX package picks in both of its branches: its fold
+preselect (a 20-bit candidate field, S <= 2^20) and its sorted-order branch
+for larger shards (a strict `>` over k = 1..K, the same rescore).
 """
 from __future__ import annotations
 
@@ -28,17 +32,20 @@ from .u32 import mul32
 
 HASH_BITS = 16
 HASH_MUL = 2654435761
-MAX_SHARD = 1 << 20
+_CAND_BITS = 32                 # candidate field of the packed key
+_K_BITS = 8                     # (K - k) field: num_candidates < 256
 
 
 def _shift_down(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
     """y[i] = x[i-k], the first k filled."""
+    k = min(k, x.shape[0])
     return torch.cat([torch.full((k,), fill, dtype=x.dtype, device=x.device),
                       x[:-k]])
 
 
 def _shift_up(x: torch.Tensor, k: int) -> torch.Tensor:
     """y[i] = x[i+k], the last k zero."""
+    k = min(k, x.shape[0])
     return torch.cat([x[k:], torch.zeros(k, dtype=x.dtype, device=x.device)])
 
 
@@ -59,12 +66,11 @@ def find_matches(data: torch.Tensor, num_candidates: int = 32):
     """Best match per position: (length, dist), int64[S]; length 0 where
     no usable match. Lengths are capped at 35 (8 payload words + tail)."""
     S = data.shape[0]
-    if S > MAX_SHARD:
-        raise NotImplementedError(
-            "shards over 1 MB (the sorted-order match branch) are not "
-            "ported yet")
-    dev = data.device
     K = num_candidates
+    if not 1 <= K < (1 << _K_BITS):
+        raise ValueError(f"num_candidates must be in [1, {(1 << _K_BITS) - 1}]")
+    dev = data.device
+    nb_shift = _CAND_BITS + _K_BITS
     PW = 8
     pos = torch.arange(S, device=dev)
     d = data.long()
@@ -100,9 +106,11 @@ def find_matches(data: torch.Tensor, num_candidates: int = 32):
         nw = e0.long() + (e0 & e1).long()
         fd = torch.where(~e0, d0, torch.where(~e1, d1, dl))
         nb = 4 * nw + _tail_bytes(fd)
-        key = torch.where(ok, ((nb + 1) << 26) | ((K - k) << 20) | cnd, -1)
+        key = torch.where(ok, ((nb + 1) << nb_shift)
+                          | ((K - k) << _CAND_BITS) | cnd, -1)
         mk = torch.maximum(mk, key)
-    best_cand = torch.where(mk >= (1 << 26), mk & 0xFFFFF, -1)
+    best_cand = torch.where(mk >= (1 << nb_shift),
+                            mk & ((1 << _CAND_BITS) - 1), -1)
 
     # back to position order (ps is a permutation)
     cand_p = torch.empty_like(best_cand)

@@ -26,10 +26,10 @@ import torch
 from .. import native_bridge
 from ..core.bits import BitReader
 from ..core.checksum import adler32_combine, adler32_torch
-from ..core.huffman import decode_lut_np
 from ..device import pick_device
 from ..format import constants as C
 from ..utils.errors import DeflateError
+from .inflate import _FIXED_D_LUT, _FIXED_LL_LUT, _read_dynamic_tables
 
 _MAGIC = b"DCXI"
 _VERSION = 2
@@ -39,10 +39,6 @@ SUB_SIZE = 1024
 INDEX_STAT_FIELDS = ("block_bit_base", "block_out_start", "btype",
                      "n_blocks", "sub_bit", "sub_out", "sub_blk",
                      "sub_overflow")
-
-_FIXED_LL = decode_lut_np(C.FIXED_LITLEN_LENGTHS, 15)
-_FIXED_D = decode_lut_np(C.FIXED_DIST_LENGTHS, 15)
-
 
 @dataclasses.dataclass
 class DecodeIndex:
@@ -113,62 +109,6 @@ def _check_sub_order(sub_out) -> None:
         raise DeflateError("E_INDEX", "sub-entries out of output order")
 
 
-def _read_dynamic_tables(r: BitReader):
-    """Parse a BTYPE=2 header into (litlen LUT, dist LUT) (copy of the JAX
-    package's decode/inflate.py _read_dynamic_tables)."""
-    hlit = r.read(5) + 257
-    hdist = r.read(5) + 1
-    hclen = r.read(4) + 4
-    if hlit > 286 or hdist > 30:
-        raise DeflateError("E_HDR", f"bad HLIT/HDIST {hlit}/{hdist}")
-    clen_lens = np.zeros(19, dtype=np.int64)
-    for j in range(hclen):
-        clen_lens[C.CLEN_ORDER[j]] = r.read(3)
-    try:
-        cl_sym, cl_len = decode_lut_np(clen_lens, 7)
-    except ValueError as e:
-        raise DeflateError("E_TREE", str(e))
-    total = hlit + hdist
-    lens = np.zeros(total, dtype=np.int64)
-    i = 0
-    prev = -1
-    while i < total:
-        idx = r.peek(7)
-        l = cl_len[idx]
-        if l == 0:
-            raise DeflateError("E_BADCODE", "invalid code-length code")
-        r.skip(int(l))
-        s = int(cl_sym[idx])
-        if s < 16:
-            lens[i] = s
-            prev = s
-            i += 1
-            continue
-        if s == 16:
-            if prev < 0:
-                raise DeflateError("E_TREE", "repeat with no previous length")
-            rep, fill = 3 + r.read(2), prev
-        elif s == 17:
-            rep, fill = 3 + r.read(3), 0
-        else:
-            rep, fill = 11 + r.read(7), 0
-        if i + rep > total:
-            raise DeflateError("E_TREE", "repeat overruns code lengths")
-        lens[i:i + rep] = fill
-        i += rep
-        prev = fill
-    ll_lens = lens[:hlit]
-    d_lens = lens[hlit:]
-    if ll_lens[256] == 0:
-        raise DeflateError("E_TREE", "no end-of-block code")
-    try:
-        ll_lut = decode_lut_np(np.pad(ll_lens, (0, 286 - hlit)), 15)
-        d_lut = decode_lut_np(np.pad(d_lens, (0, 30 - hdist)), 15)
-    except ValueError as e:
-        raise DeflateError("E_TREE", str(e))
-    return ll_lut, d_lut
-
-
 def native_available() -> bool:
     """Whether build_index can take the repository's native C++ pass."""
     return native_bridge.available()
@@ -204,7 +144,7 @@ def build_index(stream: bytes, bit_pos: int = 0, sub_size: int = SUB_SIZE,
             out += ln
         elif btype in (C.BTYPE_FIXED, C.BTYPE_DYNAMIC):
             if btype == C.BTYPE_FIXED:
-                (ll_sym, ll_len), (d_sym, d_len) = _FIXED_LL, _FIXED_D
+                (ll_sym, ll_len), (d_sym, d_len) = _FIXED_LL_LUT, _FIXED_D_LUT
             else:
                 (ll_sym, ll_len), (d_sym, d_len) = _read_dynamic_tables(r)
             next_mark = out          # a block's start always gets an entry

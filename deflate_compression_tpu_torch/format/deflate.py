@@ -165,7 +165,9 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     """Encode one shard into a DEFLATE bitstream, on data's device.
 
     Args:
-      data: u8[S] tensor, S % 32768 == 0, 32768 <= S <= 2^20.
+      data: u8[S] tensor, S a positive multiple of 32768 below 2^30 (the
+        sub_out sentinel). Bit offsets are int64; the JAX encoder's int32
+        offsets bound the range where the two can agree to about S < 2^27.
       valid_len: number of real bytes, in [1, S].
       final: if True the last block gets BFINAL and no sync flush; if False
         a byte-aligning empty stored block is appended.

@@ -1,18 +1,22 @@
-"""User-facing compress API (counterpart of
+"""User-facing compress/decompress API (counterpart of
 deflate_compression_tpu/models/codec.py).
 
-`DeflateCodec` (raw RFC 1951) and `ZlibCodec` (RFC 1950 container) cut the
-input into `config.shard_size` shards, encode each with
+`DeflateCodec` (raw RFC 1951), `ZlibCodec` (RFC 1950) and `GzipCodec`
+(RFC 1952) cut the input into `config.shard_size` shards, encode each with
 `format.deflate.encode_shard` on the codec's device, and join the
-substreams (every non-final shard ends byte-aligned). `compress_stream`
-and `compress_file` encode shard by shard with O(shard) memory and hand
-out the encoder's decode index (decode/index.py), which
-`decode.index.decompress_indexed` decodes on the device. Not ported yet:
-the codecs' host `decompress`, the gzip codec and the self-check.
+substreams (every non-final shard ends byte-aligned). With
+`config.self_check` each shard's bytes are replayed on the host
+(decode/verify.py) right after the card encodes them and before they are
+committed. `decompress` inflates on the host (decode/inflate.py, native
+where it builds). `compress_stream` and `compress_file` encode shard by
+shard with O(shard) memory and hand out the encoder's decode index
+(decode/index.py), which `decode.index.decompress_indexed` decodes on the
+device.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -24,6 +28,9 @@ from ..format import containers
 from ..format.deflate import encode_shard, encode_shards, shard_bytes
 from ..utils.config import DEFAULT_CONFIG, CodecConfig
 from ..utils.errors import DeflateError
+from ..utils.logging_util import LOGGER_NAME, MetricsRecorder
+
+_LOG = logging.getLogger(f"{LOGGER_NAME}.models.codec")
 
 
 @dataclasses.dataclass
@@ -44,16 +51,49 @@ class CompressStats:
     def rate_bits_per_byte(self) -> float:
         return 8.0 * self.output_bytes / max(1, self.input_bytes)
 
+    def to_csv(self) -> str:
+        """Cumulative trace in the reference's format B
+        (`bytes,compressed_bits`)."""
+        lines = ["bytes,compressed_bits"]
+        cb = 0
+        cby = 0
+        for bb, bits in zip(self.block_bytes, self.block_bits):
+            cby += bb
+            cb += bits
+            lines.append(f"{cby},{cb}")
+        return "\n".join(lines) + "\n"
+
+
+def _self_check_shard(shard_bytes: bytes, total_bits: int,
+                      original: bytes, shard_idx: int) -> None:
+    """Replay one shard's substream against a 32 KB ring on the host right
+    after it is encoded and before its bytes are committed, so a bad token
+    fails at its shard. Shards start fresh windows, so the replay is
+    self-contained. Raises E_SELFCHECK."""
+    from ..decode.verify import replay_stream
+    try:
+        out, _, _ = replay_stream(shard_bytes, 0, stop_at_bits=total_bits)
+    except DeflateError as e:
+        raise DeflateError(
+            "E_SELFCHECK",
+            f"self-check: shard {shard_idx} replay failed: {e}")
+    if out != original:
+        n = next((i for i, (a, b) in enumerate(zip(out, original))
+                  if a != b), min(len(out), len(original)))
+        raise DeflateError(
+            "E_SELFCHECK",
+            f"self-check: shard {shard_idx} reconstruction diverges at "
+            f"byte {n} ({len(out)} vs {len(original)} bytes)")
+
 
 class DeflateCodec:
-    """Raw DEFLATE (RFC 1951) encoder over byte strings, on one device
-    (CUDA unless device="cpu" is passed)."""
+    """Raw DEFLATE (RFC 1951) codec over byte strings: encode on one
+    device (CUDA unless device="cpu" is passed), decode on the host."""
 
     def __init__(self, config: CodecConfig = DEFAULT_CONFIG, device=None):
-        if config.self_check:
-            raise NotImplementedError("self_check is not ported yet")
         self.config = config
         self.device = pick_device(device)
+        self.metrics = MetricsRecorder()
 
     def _encode_shards(self, raw: bytes):
         cfg = self.config
@@ -66,14 +106,21 @@ class DeflateCodec:
             return [b"\x01\x00\x00\xff\xff"], stats   # final empty stored
         parts = []
         btc = [0, 0, 0]
-        shards = encode_shards(raw, cfg.shard_size, self.device,
+        S = cfg.shard_size
+        nsh = -(-len(raw) // S)
+        shards = encode_shards(raw, S, self.device,
                                num_candidates=cfg.num_candidates,
                                lazy=cfg.lazy, force_btype=cfg.force_btype)
         for s, r in enumerate(shards):
             if bool(r["sub_overflow"]):
                 raise DeflateError("E_INDEX",
                                    f"shard {s}: sub-entry capacity overflow")
-            parts.append(shard_bytes(r))
+            tb = int(r["total_bits"])
+            sb = shard_bytes(r)
+            part = raw[s * S:(s + 1) * S]
+            if cfg.self_check:
+                _self_check_shard(sb, tb, part, s)
+            parts.append(sb)
             bt = r["btype"].cpu().numpy()
             emitted = bt >= 0
             for t in range(3):
@@ -84,6 +131,13 @@ class DeflateCodec:
             stats.tree_bits += int(r["tree_bits"].sum())
             stats.block_bits += r["block_bits"].cpu().numpy()[emitted].tolist()
             stats.block_bytes += r["block_bytes"].cpu().numpy()[emitted].tolist()
+            self.metrics.record("shard_bytes", len(part))
+            self.metrics.record("shard_bits", tb)
+            _LOG.debug("shard %d/%d: %d bytes -> %d bits (%d blocks)",
+                       s + 1, nsh, len(part), tb, int(emitted.sum()))
+        for bb, bits in zip(stats.block_bytes, stats.block_bits):
+            self.metrics.record("block_bytes", bb)
+            self.metrics.record("block_bits", bits)
         stats.btype_counts = tuple(btc)
         return parts, stats
 
@@ -93,6 +147,11 @@ class DeflateCodec:
         out = b"".join(parts)
         stats.output_bytes = len(out)
         return (out, stats) if return_stats else out
+
+    def decompress(self, data: bytes) -> bytes:
+        from ..decode.inflate import inflate_raw
+        out, _ = inflate_raw(bytes(data))
+        return out
 
 
 class ZlibCodec(DeflateCodec):
@@ -107,13 +166,31 @@ class ZlibCodec(DeflateCodec):
         stats.output_bytes = len(out)
         return (out, stats) if return_stats else out
 
+    def decompress(self, data: bytes) -> bytes:
+        from ..decode.inflate import zlib_decompress
+        return zlib_decompress(bytes(data),
+                               verify_adler=self.config.verify_checksums)
+
+
+class GzipCodec(DeflateCodec):
+    """gzip container (RFC 1952): header + DEFLATE + CRC-32 + ISIZE."""
+
+    def compress(self, data, return_stats: bool = False):
+        raw = bytes(data)
+        parts, stats = self._encode_shards(raw)
+        crc = checksum.crc32_np(raw)
+        out = containers.gzip_wrap(b"".join(parts), crc, len(raw))
+        stats.output_bytes = len(out)
+        return (out, stats) if return_stats else out
+
+    def decompress(self, data: bytes) -> bytes:
+        return containers.gzip_decompress(bytes(data))
+
 
 def make_codec(config: CodecConfig = DEFAULT_CONFIG,
                device=None) -> DeflateCodec:
-    if config.container == "gzip":
-        raise NotImplementedError("the gzip codec is not ported yet")
-    return {"raw": DeflateCodec, "zlib": ZlibCodec}[config.container](
-        config, device=device)
+    return {"raw": DeflateCodec, "zlib": ZlibCodec,
+            "gzip": GzipCodec}[config.container](config, device=device)
 
 
 # --------------------------------------------------------------- streaming
@@ -143,19 +220,15 @@ def compress_stream(src, config: CodecConfig = DEFAULT_CONFIG,
 
     Args:
       src: file-like object (.read) or iterable of bytes chunks.
-      config: container "raw" or "zlib" (gzip and self_check are not
-        ported yet and raise NotImplementedError), shard_size and the
-        encoder options.
+      config: honoured in full: the container ("raw", "zlib" or "gzip"),
+        shard_size, the encoder options and self_check (each shard
+        replayed on the host before it is yielded).
       index_sink: optional list receiving one (stats, total_bits, out_len)
         tuple per shard, stats as host numpy arrays, ready for
         decode.index.index_from_shards.
       device: where shards are encoded (the CUDA card unless "cpu").
     """
     cfg = config
-    if cfg.container == "gzip":
-        raise NotImplementedError("the gzip codec is not ported yet")
-    if cfg.self_check:
-        raise NotImplementedError("self_check is not ported yet")
     dev = pick_device(device)
     yield containers.container_header(cfg.container)
 
@@ -168,12 +241,18 @@ def compress_stream(src, config: CodecConfig = DEFAULT_CONFIG,
         if bool(r["sub_overflow"]):
             raise DeflateError("E_INDEX",
                                f"shard {s}: sub-entry capacity overflow")
+        tb = int(r["total_bits"])
+        sb = shard_bytes(r)
+        if cfg.self_check:
+            _self_check_shard(sb, tb, part, s)
         if index_sink is not None:
             stats = {k: r[k].cpu().numpy() for k in INDEX_STAT_FIELDS}
-            index_sink.append((stats, int(r["total_bits"]), len(part)))
-        return shard_bytes(r)
+            index_sink.append((stats, tb, len(part)))
+        return sb
 
     adler = 1
+    crc = 0
+    total_in = 0
     pending = None
     s = 0
     for chunk in _iter_shard_chunks(src, cfg.shard_size):
@@ -183,12 +262,17 @@ def compress_stream(src, config: CodecConfig = DEFAULT_CONFIG,
         pending = chunk
         if cfg.container == "zlib":
             adler = checksum.adler32_np(np.frombuffer(chunk, np.uint8), adler)
+        elif cfg.container == "gzip":
+            crc = checksum.crc32_np(chunk, crc)
+        total_in += len(chunk)
     if pending is not None:
         yield encode_one(pending, s, True)
     else:
         yield b"\x01\x00\x00\xff\xff"      # empty input: final stored block
     if cfg.container == "zlib":
         yield containers.zlib_footer(adler)
+    elif cfg.container == "gzip":
+        yield containers.gzip_footer(crc, total_in)
 
 
 def compress_file(in_path: str, out_path: str,

@@ -1,5 +1,8 @@
-"""ctypes bridge to the repository's native C++ index pass
-(native/deflate_native.cpp), for `decode.index.build_index`.
+"""ctypes bridge to the repository's native C++ host runtime
+(native/deflate_native.cpp): the index pass of `decode.index.build_index`,
+the inflater of `decode.inflate` (raw and zlib), the PNG defilter of
+`png.decoder` and the CRC-32 / Adler-32 loops, with the JAX package's
+signatures and grow-and-retry loops.
 
 The port builds its own copy of the library from that source, with the
 system C++ compiler, at first use, into the git-ignored `build/` beside
@@ -8,7 +11,7 @@ the source and flags; the compiler writes a temporary name that
 `os.replace` publishes under an `fcntl` lock, so concurrent processes (test
 workers, the JAX package's own build in `native/`) never see a partial
 file. Where no compiler or source is found, `available()` is False and
-`build_index` takes its Python loop.
+each caller takes its Python path on the host.
 """
 from __future__ import annotations
 
@@ -85,9 +88,27 @@ def get_lib():
         try:
             lib = ctypes.CDLL(str(build()))
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-            log.info("native index pass unavailable: %s", e)
+            log.info("native runtime unavailable: %s", e)
             return None
         i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.dct_inflate2.restype = ctypes.c_int64
+        lib.dct_inflate2.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, i64p, ctypes.c_int64]
+        lib.dct_zlib_decompress.restype = ctypes.c_int64
+        lib.dct_zlib_decompress.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int]
+        lib.dct_png_defilter.restype = ctypes.c_int64
+        lib.dct_png_defilter.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64]
+        lib.dct_crc32.restype = ctypes.c_uint32
+        lib.dct_crc32.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                  ctypes.c_uint32]
+        lib.dct_adler32.restype = ctypes.c_uint32
+        lib.dct_adler32.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                    ctypes.c_uint32]
         lib.dct_build_index.restype = ctypes.c_int64
         lib.dct_build_index.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
@@ -104,6 +125,65 @@ def get_lib():
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def _grown(call, data: bytes, what: str) -> bytes:
+    """call(out, cap) into a growing output buffer: retried 4x larger on
+    E_SIZE up to 8 GiB; another negative code raises its DeflateError."""
+    cap = max(4 * len(data), 1 << 16)
+    while True:
+        out = ctypes.create_string_buffer(cap)
+        r = call(out, cap)
+        if r >= 0:
+            return out.raw[:r]
+        if r == -8:  # E_SIZE: grow and retry
+            cap *= 4
+            if cap > (1 << 33):
+                raise DeflateError("E_SIZE", "output exceeds 8 GiB cap")
+            continue
+        raise DeflateError(_ERRNAMES.get(int(r), "E_HDR"),
+                           f"native {what} error {int(r)}")
+
+
+def inflate_raw_native(data: bytes, bit_pos: int = 0,
+                       max_dist: int = 32768):
+    """Native inflate_raw; returns (bytes, end_bit_pos) like the Python
+    one."""
+    lib = get_lib()
+    end = ctypes.c_int64(0)
+    out = _grown(lambda buf, cap: lib.dct_inflate2(
+        data, len(data), bit_pos, buf, cap, ctypes.byref(end), max_dist),
+        data, "inflate")
+    return out, int(end.value)
+
+
+def zlib_decompress_native(data: bytes, verify: bool = True) -> bytes:
+    lib = get_lib()
+    return _grown(lambda buf, cap: lib.dct_zlib_decompress(
+        data, len(data), buf, cap, 1 if verify else 0), data, "zlib")
+
+
+def png_defilter_native(rows, filters, bpp: int):
+    """In-place PNG scanline defilter over (H, rb) u8 rows. Returns the
+    reconstructed array (same buffer)."""
+    from .utils.errors import PngError
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    H, rb = rows.shape
+    r = get_lib().dct_png_defilter(
+        rows.ctypes.data_as(ctypes.c_void_p),
+        np.ascontiguousarray(filters, dtype=np.uint8).tobytes(),
+        H, rb, bpp)
+    if r != 0:
+        raise PngError("E_FILTER", "unknown filter type")
+    return rows
+
+
+def crc32_native(data: bytes, crc: int = 0) -> int:
+    return int(get_lib().dct_crc32(data, len(data), crc & 0xFFFFFFFF))
+
+
+def adler32_native(data: bytes, adler: int = 1) -> int:
+    return int(get_lib().dct_adler32(data, len(data), adler & 0xFFFFFFFF))
 
 
 def build_index_native(data: bytes, bit_pos: int = 0, sub_size: int = 1024):

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 DOMAIN_GLOBAL = 0x0000000
 DOMAIN_DEFLATE = 0x1000000
+DOMAIN_PNG = 0x2000000
 
 
 class CodecError(Exception):
@@ -26,4 +27,13 @@ class DeflateError(CodecError):
         "E_HDR", "E_FDICT", "E_BTYPE", "E_STORED", "E_TREE", "E_BADCODE",
         "E_SYM", "E_DIST", "E_SIZE", "E_ADLER", "E_TRUNC", "E_INDEX",
         "E_SELFCHECK",
+    ])}
+
+
+class PngError(CodecError):
+    domain = DOMAIN_PNG
+    _names = {n: i for i, n in enumerate([
+        "E_SIG", "E_CHLEN", "E_CHNAME", "E_CRC", "E_ORDER", "E_MULT",
+        "E_IHDR", "E_PLTE", "E_IDAT", "E_DEPTH", "E_FILTER", "E_INTERLACE",
+        "E_TEXT", "E_EOF",
     ])}

@@ -80,6 +80,14 @@ def test_deflate_error_code_and_message_match_jax(name):
     assert not isinstance(t, jerr.CodecError)
 
 
+@pytest.mark.parametrize("name", ["E_SIG", "E_CRC", "E_IDAT", "E_FILTER",
+                                  "E_EOF", "E_UNKNOWN"])
+def test_png_error_code_and_message_match_jax(name):
+    t, j = terr.PngError(name, "msg"), jerr.PngError(name, "msg")
+    assert (t.name, t.code, str(t)) == (j.name, j.code, str(j))
+    assert isinstance(t, terr.CodecError)
+
+
 def test_native_index_matches_jax_bridge():
     import zlib
     raw = (b"native index pass of the port " * 4000)[:100_000]

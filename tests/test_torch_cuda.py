@@ -98,8 +98,9 @@ def test_tile_histogram_kernel_cluster_sizes(cuda, rows, length):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size,valid_len,final", [(65536, 65536, True),
-                                                  (1 << 20, 700001, False)])
+@pytest.mark.parametrize("size,valid_len,final", [
+    (65536, 65536, True), (1 << 20, 700001, False),
+    (4 << 20, (4 << 20) - 12345, False), (1_081_344, 1_081_344, True)])
 def test_encode_shard_cuda_matches_cpu(cuda, size, valid_len, final):
     x = torch.from_numpy(corpus.sample("mixed", size, seed=1))
     before = H.tile_histogram.launches
@@ -111,6 +112,69 @@ def test_encode_shard_cuda_matches_cpu(cuda, size, valid_len, final):
     for k in c:
         if k != "words":
             assert torch.equal(g[k].cpu(), c[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [128, 256])
+@pytest.mark.parametrize("nc", [286, 30])
+def test_tile_histogram_kernel_large_shard_rows(cuda, rows, nc):
+    """The rows of one 4 MB (128 tiles) and one 8 MB shard, on the
+    encoder's int64 symbols and on int32."""
+    sym = _hist_rows(rows, 32768, nc, torch.int64, rows + nc)
+    _same_hist(sym, nc)
+    _same_hist(sym.int(), nc)
+
+
+@pytest.mark.cuda
+def test_self_check_on_the_card(cuda):
+    from deflate_compression_tpu_torch.models import codec as tcodec
+    from deflate_compression_tpu_torch.utils.config import CodecConfig
+    raw = corpus.build_corpus(3 * 65536 + 999, seed=12)
+    cfg = CodecConfig(shard_size=65536, container="gzip", self_check=True)
+    blob = tcodec.GzipCodec(cfg, device="cuda").compress(raw)
+    assert blob == tcodec.GzipCodec(cfg, device="cpu").compress(raw)
+    assert tcodec.GzipCodec(cfg, device="cuda").decompress(blob) == raw
+
+
+@pytest.mark.cuda
+def test_trace_on_the_card_matches_cpu(cuda):
+    from deflate_compression_tpu_torch.utils.trace import per_symbol_trace_csv
+    raw = corpus.sample("mixed", 40_000, seed=3).tobytes()
+    kw = {"stride": 13, "header_stride": 5}
+    before = H.tile_histogram.launches
+    got = per_symbol_trace_csv(raw, device="cuda", **kw)
+    assert H.tile_histogram.launches == before       # tokenize only
+    assert got == per_symbol_trace_csv(raw, device="cpu", **kw)
+
+
+@pytest.mark.cuda
+def test_flat_decode_of_4mb_shards(cuda):
+    """Two 4 MB shards (the second short) encoded on the card and decoded
+    in one flat decode_blocks_batch: bytes equal the input, adler32 per
+    shard equals zlib's, each decode kernel launched once."""
+    from deflate_compression_tpu_torch.core.checksum import adler32_torch
+    S = 4 << 20
+    raw = corpus.build_corpus(S + 1_000_003, seed=21)
+    valid = [S, len(raw) - S]
+    rs = []
+    for i, v in enumerate(valid):
+        buf = np.zeros(S, np.uint8)
+        buf[:v] = np.frombuffer(raw[i * S:i * S + v], np.uint8)
+        rs.append(td.encode_shard(torch.from_numpy(buf).to(cuda), v, i == 1))
+    blob = b"".join(td.shard_bytes(r) for r in rs)
+    assert zlib.decompress(blob, wbits=-15) == raw
+    b = [torch.stack([r[k] for r in rs]) for k in BATCH_KEYS]
+    ds0, lg0 = DS.decode_symbols.launches, LG.lut_gather.launches
+    res = DI.decode_blocks_batch(*b, valid, S)
+    torch.cuda.synchronize()
+    assert (DS.decode_symbols.launches, LG.lut_gather.launches) == \
+        (ds0 + 1, lg0 + 1)
+    assert bool(res["ok"])
+    out = res["out"].cpu().numpy()
+    for i, v in enumerate(valid):
+        part = raw[i * S:i * S + v]
+        assert out[i, :v].tobytes() == part
+        assert int(adler32_torch(res["out"][i], v)) == zlib.adler32(part)
 
 
 BATCH_KEYS = ("words", "block_bit_base", "block_out_start", "btype",

@@ -44,6 +44,33 @@ except DeflateError:
     pass
 else:
     raise AssertionError("adler mismatch not raised")
+import gzip, struct
+from deflate_compression_tpu_torch import (
+    GzipCodec, make_codec, per_symbol_trace_csv, png_decode, verify_stream)
+for container in ("raw", "zlib", "gzip"):
+    codec = make_codec(CodecConfig(shard_size=32768, container=container),
+                       device="cpu")
+    comp = codec.compress(data)
+    assert codec.decompress(comp) == data
+    reports, checks = verify_stream(comp, data)
+    assert reports and all(ok for _, ok, _ in checks), checks
+assert gzip.decompress(comp) == data and isinstance(codec, GzipCodec)
+px = np.random.default_rng(0).integers(0, 256, (5, 4, 4), dtype=np.uint8)
+def chunk(name, payload):
+    return (struct.pack(">I", len(payload)) + name + payload
+            + struct.pack(">I", zlib.crc32(name + payload)))
+rows = b"".join(b"\x00" + r.tobytes() for r in px)
+png = (b"\x89PNG\r\n\x1a\n"
+       + chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 5, 8, 6, 0, 0, 0))
+       + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+assert (png_decode(png).pixels == px).all()
+csv = per_symbol_trace_csv(data[:4096], device="cpu", stride=64)
+assert csv.splitlines()[-1].startswith("4096,")
+import torch
+from deflate_compression_tpu_torch.format.deflate import encode_shard, shard_bytes
+big = np.frombuffer((data * 33)[:1_081_344], np.uint8).copy()
+r = encode_shard(torch.from_numpy(big), big.size, True)
+assert zlib.decompress(shard_bytes(r), wbits=-15) == big.tobytes()
 assert sys.modules["jax"] is None
 assert sys.modules["deflate_compression_tpu"] is None
 assert not any(m.startswith(("jax.", "deflate_compression_tpu."))
@@ -105,6 +132,15 @@ def test_codec_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         ZlibCodec()
+
+
+def test_gzip_codec_and_trace_default_device_is_cuda(monkeypatch):
+    from deflate_compression_tpu_torch import GzipCodec, per_symbol_trace_csv
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        GzipCodec()
+    with pytest.raises(RuntimeError):
+        per_symbol_trace_csv(b"tokenized on the card unless asked")
 
 
 def test_kernel_wrappers_reject_other_devices():

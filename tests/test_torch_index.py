@@ -12,6 +12,8 @@ import torch
 
 from deflate_compression_tpu.core.checksum import adler32_jax
 from deflate_compression_tpu.decode import index as jidx
+from deflate_compression_tpu.models import codec as jcodec
+from deflate_compression_tpu.utils.config import CodecConfig as JaxConfig
 from deflate_compression_tpu.utils.errors import DeflateError as JaxDeflateError
 from deflate_compression_tpu_torch import corpus
 from deflate_compression_tpu_torch.core.checksum import (adler32_combine,
@@ -133,9 +135,10 @@ def test_compress_file_writes_stream_and_index(tmp_path):
     assert tidx.decompress_indexed(
         body, tidx.DecodeIndex.from_bytes(dcx.read_bytes()),
         device="cpu") == raw
-    with pytest.raises(NotImplementedError):
-        next(tcodec.compress_stream([raw], CodecConfig(container="gzip"),
-                                    device="cpu"))
+    gz = CodecConfig(shard_size=S, container="gzip")
+    assert b"".join(tcodec.compress_stream([raw], gz, device="cpu")) == \
+        b"".join(jcodec.compress_stream([raw], JaxConfig(shard_size=S,
+                                                         container="gzip")))
 
 
 # ----------------------------------------------------- decompress_indexed
