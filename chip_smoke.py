@@ -46,11 +46,23 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      MB corpus on the card and decompress it on the host (zlib / gzip
      oracles), the self-check on 2 MB, verify_stream of its zlib and gzip
      blobs, png_decode of a PNG built here, the per-symbol trace of 256 KB
-     on the card against the CPU.
+     on the card against the CPU;
+ 12. distributed and resumable encode of phase 4's corpus in 1 MB shards:
+     compress_distributed in a 1-rank NCCL group (phase 4's bytes,
+     tile_histogram 18 times), in 2 gloo ranks that both encode on cuda:0
+     (subprocesses; NCCL refuses two ranks on one GPU), its index given to a
+     flat decode_blocks_batch, and compress_file_resumable crashed after
+     shard 3 and resumed;
+ 13. the command line: each subcommand as `python3 -m
+     deflate_compression_tpu_torch` in a subprocess (compress, decompress
+     --index and trace on the card, counting launches), checked against the
+     zlib oracle and the bytes of phases 4 and 11.
 Any failure raises, so the script exits non-zero. Before the last line it
 prints the kernels' JSON line: per kernel its launches on the main path
-(the 1 MB-shard encode of phase 4 and decode of phase 8) and on the 4 MB-
-shard path of phase 10 (`launches_4mb`), its error against the plain
+(the 1 MB-shard encode of phase 4 and decode of phase 8), on the 4 MB-
+shard path of phase 10 (`launches_4mb`), in phase 12's 1-rank NCCL encode
+(`launches_dist`) and per CLI subcommand of phase 13 (`launches_cli`), its
+error against the plain
 version, and its device time per launch (`ms`), its plain version's
 (`plain_ms`), the bound (`bound_ms`: the bytes it must move over 3.35
 TB/s; the operations are far below the peak rates) and `share_of_bound`,
@@ -279,13 +291,22 @@ def main() -> int:
     decode = decode_phases(raw, cfg, blob, dev, (ds_lib.name, lg_lib.name),
                            t_ds)
     large = large_shard_phase(dev, len(raw) / dt)
-    surface_phase(raw, dev)
+    px = surface_phase(raw, dev)
+    dist = dist_phase(raw, cfg, blob, dev, len(raw) / dt)
+    cli = cli_phase(raw, blob, stats, px, dev)
+
+    def new_paths(name):
+        return {"launches_4mb": large[name],
+                "launches_dist": dist["launches"][name],
+                "launches_cli": {k: v[name] for k, v in cli.items()}}
 
     print(json.dumps({"kernels": [{
         "name": "tile_histogram", "route": "cuda",
         "source": "deflate_compression_tpu_torch/csrc/tile_histogram.cu",
         "replaces": "deflate_compression_tpu/ops/histogram_pallas.py:74",
-        "launches": launches, "launches_4mb": large["tile_histogram"],
+        "launches": launches, **new_paths("tile_histogram"),
+        "launches_dist_gloo_ranks": dist["gloo_ranks"],
+        "launches_resumable": dist["resumable"],
         "max_abs_err": max_err,
         **entry(times[(32, 286, "int64", "random")]), "library_ms": None,
         "int32_ms": times[(32, 286, "int32", "random")]["ms"],
@@ -297,7 +318,7 @@ def main() -> int:
         "rows128_c30_ms": times[(128, 30, "int64", "random")]["ms"],
         "context_bincount_ms": times[(32, 286, "int64", "random")][
             "bincount_ms"]},
-        *({**d, "launches_4mb": large[d["name"]]} for d in decode)]}))
+        *({**d, **new_paths(d["name"])} for d in decode)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -822,10 +843,11 @@ def png_bytes(px: np.ndarray) -> bytes:
             + chunk(b"IEND", b""))
 
 
-def surface_phase(raw: bytes, dev) -> None:
+def surface_phase(raw: bytes, dev) -> np.ndarray:
     """Phase 11: the codec's surface around the card's encoder: the three
     containers' compress on the card and decompress on the host, the
-    self-check, verify_stream, png_decode and the per-symbol trace."""
+    self-check, verify_stream, png_decode and the per-symbol trace. Returns
+    the pixels of the PNG it decoded."""
     import gzip
 
     from deflate_compression_tpu_torch import (
@@ -897,6 +919,358 @@ def surface_phase(raw: bytes, dev) -> None:
           f"equal; per_symbol_trace_csv of {len(tr)} bytes on the card "
           f"({t_tr:.2f} s, {len(on_card.splitlines()) - 1} records) == CPU")
     torch.cuda.synchronize()
+    return px
+
+
+# ------------------------------------------------------- 12. distributed
+
+def counters() -> dict:
+    """Each kernel's wrapper, whose `launches` counts its launches."""
+    from deflate_compression_tpu_torch.ops import decode_symbols as DS
+    from deflate_compression_tpu_torch.ops import histogram as H
+    from deflate_compression_tpu_torch.ops import lut_gather as LG
+    return {"tile_histogram": H.tile_histogram,
+            "decode_symbols": DS.decode_symbols, "lut_gather": LG.lut_gather}
+
+
+def zero_counts() -> None:
+    for f in counters().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: f.launches for k, f in counters().items()}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+_GLOO_RANK = r"""
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[5])
+from deflate_compression_tpu_torch.parallel.dist import (
+    compress_distributed, make_mesh)
+from deflate_compression_tpu_torch.parallel.launcher import init_distributed
+from deflate_compression_tpu_torch.ops import histogram as H
+rank, world, init, out, dev, S = int(sys.argv[1]), int(sys.argv[2]), \
+    sys.argv[3], sys.argv[4], sys.argv[6], int(sys.argv[7])
+raw = open(out + ".in", "rb").read()
+info = init_distributed(init, world, rank, device=dev, backend="gloo",
+                        timeout_s=300)
+mesh = make_mesh(info["group"], dev)
+compress_distributed(raw[:S], mesh, shard_size=S)    # warm-up
+torch.cuda.synchronize()
+H.tile_histogram.launches = 0
+t0 = time.perf_counter()
+blob, idx = compress_distributed(raw, mesh, shard_size=S, return_index=True)
+torch.cuda.synchronize()
+dt = time.perf_counter() - t0
+launches = H.tile_histogram.launches
+open(f"{out}.{rank}.zz", "wb").write(blob)
+open(f"{out}.{rank}.dcx", "wb").write(idx.to_bytes())
+torch.distributed.destroy_process_group()
+print("RANK " + json.dumps({"rank": rank, "tile_histogram": launches,
+                            "seconds": dt}), flush=True)
+"""
+
+
+def run_procs(cmds: dict, timeout: float) -> dict:
+    """Start every command at once and wait for all, each within `timeout`
+    seconds (killing any left); return name -> (stdout, stderr, seconds
+    from the start to its exit). Raises if one exits non-zero."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, c in cmds.items()}
+
+    def wait(p):
+        so, se = p.communicate(timeout=timeout)
+        return so, se, time.perf_counter() - t0
+    try:
+        with ThreadPoolExecutor(len(procs)) as ex:
+            futs = {k: ex.submit(wait, p) for k, p in procs.items()}
+            res = {k: f.result() for k, f in futs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"{k} exited {p.returncode}: "
+                                 f"{res[k][1][-3000:]}")
+    return res
+
+
+def index_batch(body: bytes, idx, S: int, n: int, dev) -> tuple:
+    """decode_blocks_batch arguments of a stream of n bytes in S-byte shards
+    from its stream-level DecodeIndex: each shard's blocks and sub-entries
+    rebased to the shard's first byte (each shard starts byte-aligned with
+    a block), dead slots btype -1 and dead lanes sub_blk -1."""
+    nsh = math.ceil(n / S)
+    first = [int(np.searchsorted(idx.out_start, s * S)) for s in range(nsh)]
+    first.append(idx.n_blocks)
+    byte0 = [int(idx.bit_base[b]) // 8 for b in first[:-1]] + [len(body)]
+    sk_all = idx.sub_blk.astype(np.int64)
+    sfirst = [int(np.searchsorted(sk_all, b)) for b in first]
+    nb = max(first[s + 1] - first[s] for s in range(nsh))
+    nl = max(sfirst[s + 1] - sfirst[s] for s in range(nsh))
+    cw = max((byte0[s + 1] - byte0[s] + 3) // 4 for s in range(nsh)) + 1
+    words = np.zeros((nsh, cw), np.int64)
+    blk = np.zeros((3, nsh, nb), np.int64)
+    blk[2] = -1
+    sub = np.zeros((3, nsh, nl), np.int64)
+    sub[0], sub[2] = -1, -1
+    nblk = np.zeros(nsh, np.int64)
+    for s in range(nsh):
+        part = body[byte0[s]:byte0[s + 1]]
+        part += bytes(-len(part) % 4)
+        words[s, :len(part) // 4] = np.frombuffer(part, "<u4")
+        b0, b1 = first[s], first[s + 1]
+        nblk[s] = b1 - b0
+        blk[0, s, :b1 - b0] = idx.bit_base[b0:b1] - 8 * byte0[s]
+        blk[1, s, :b1 - b0] = idx.out_start[b0:b1] - s * S
+        blk[2, s, :b1 - b0] = idx.btype[b0:b1]
+        l0, l1 = sfirst[s], sfirst[s + 1]
+        sub[0, s, :l1 - l0] = idx.sub_bit[l0:l1] - 8 * byte0[s]
+        sub[1, s, :l1 - l0] = idx.sub_out[l0:l1] - s * S
+        sub[2, s, :l1 - l0] = sk_all[l0:l1] - b0
+    t = [torch.from_numpy(x).to(dev) for x in (words, blk[0], blk[1], blk[2],
+                                               nblk, sub[0], sub[1], sub[2])]
+    return t, [min(S, n - s * S) for s in range(nsh)]
+
+
+def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
+    """Phase 12: compress_distributed of phase 4's corpus in a 1-rank NCCL
+    group (its launches counted), in 2 gloo ranks on one card (each rank's
+    count), the index of the gloo run decoded in one flat
+    decode_blocks_batch, and compress_file_resumable crashed after shard 3
+    and resumed. Returns the launches of each path."""
+    import tempfile
+
+    import torch.distributed as tdist
+    from deflate_compression_tpu_torch import compress_file_resumable
+    from deflate_compression_tpu_torch.parallel.dist import (
+        compress_distributed, make_mesh)
+    from deflate_compression_tpu_torch.parallel.launcher import \
+        init_distributed
+
+    S = cfg.shard_size
+    nsh = math.ceil(len(raw) / S)
+    info = init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                            device=dev)
+    try:
+        mesh = make_mesh(info["group"], dev)
+        compress_distributed(raw[:S], mesh, shard_size=S)     # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out, idx = compress_distributed(raw, mesh, shard_size=S,
+                                        return_index=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        backend = tdist.get_backend(info["group"])
+    finally:
+        tdist.destroy_process_group()
+    if out != blob:
+        raise AssertionError("1-rank NCCL compress_distributed != phase 4")
+    if launches != {"tile_histogram": 2 * nsh, "decode_symbols": 0,
+                    "lut_gather": 0}:
+        raise AssertionError(f"1-rank NCCL run launched {launches}")
+
+    with tempfile.TemporaryDirectory() as d:
+        base = str(Path(d) / "g")
+        Path(base + ".in").write_bytes(raw)
+        init = f"tcp://127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        rank_dev = "cuda:0" if dev.type == "cuda" else "cpu"
+        res = run_procs({r: [sys.executable, "-c", _GLOO_RANK, str(r), "2",
+                             init, base, str(ROOT), rank_dev, str(S)]
+                         for r in range(2)}, 600)
+        t_procs = time.perf_counter() - t0
+        ranks = [json.loads(res[r][0].split("RANK ", 1)[1]) for r in range(2)]
+        outs = [Path(f"{base}.{r}.zz").read_bytes() for r in range(2)]
+        dcx = [Path(f"{base}.{r}.dcx").read_bytes() for r in range(2)]
+
+        src, dst = Path(d) / "in.bin", Path(d) / "out.zz"
+        src.write_bytes(raw)
+
+        class Crash(Exception):
+            pass
+
+        def crash_after_3(s_, n_):
+            if s_ == 3:
+                raise Crash()
+        zero_counts()
+        try:
+            compress_file_resumable(str(src), str(dst), cfg,
+                                    progress_cb=crash_after_3, device=dev)
+        except Crash:
+            pass
+        else:
+            raise AssertionError("the injected crash did not happen")
+        first = read_counts()["tile_histogram"]
+        zero_counts()
+        info_r = compress_file_resumable(str(src), str(dst), cfg, device=dev)
+        second = read_counts()["tile_histogram"]
+        resumed = dst.read_bytes()
+    if any(o != blob for o in outs) or dcx[0] != dcx[1] or \
+            dcx[0] != idx.to_bytes():
+        raise AssertionError("2 gloo ranks: bytes or index differ from the "
+                             "1-rank NCCL run")
+    if [r["tile_histogram"] for r in ranks] != [
+            2 * len(range(r, nsh, 2)) for r in range(2)]:
+        raise AssertionError(f"2 gloo ranks launched {ranks}")
+    if info_r["resumed_at_shard"] != 4 or resumed != blob or \
+            zlib.decompress(resumed) != raw or (first, second) != (
+                8, 2 * (nsh - 4)):
+        raise AssertionError(f"resumable encode: {info_r}, launches "
+                             f"{first} + {second}")
+
+    from deflate_compression_tpu_torch.core.checksum import adler32_torch
+    from deflate_compression_tpu_torch.decode import device_inflate as DI
+    from deflate_compression_tpu_torch.decode.index import DecodeIndex
+    gidx = DecodeIndex.from_bytes(dcx[0])
+    batch, valid = index_batch(outs[0][2:-4], gidx, S, len(raw), dev)
+    r = DI.decode_blocks_batch(*batch, valid, S)
+    dec = r["out"].cpu().numpy()
+    ads = [int(adler32_torch(r["out"][s_], valid[s_])) for s_ in range(nsh)]
+    if not bool(r["ok"]) or ads != [zlib.adler32(raw[s_ * S:(s_ + 1) * S])
+                                    for s_ in range(nsh)] or b"".join(
+            dec[s_, :valid[s_]].tobytes() for s_ in range(nsh)) != raw:
+        raise AssertionError("flat decode of the gloo run's index failed")
+    g_sec = max(x["seconds"] for x in ranks)
+    print(f"phase 12 distributed: {len(raw)} bytes, {nsh} shards; "
+          f"compress_distributed in a 1-rank {backend} group on {dev}: "
+          f"{len(raw) / dt / 1e6:.3f} MB/s ({dt:.3f} s; phase 4's ZlibCodec "
+          f"{mbs_1mb / 1e6:.3f} MB/s), bytes == phase 4, launches "
+          f"{launches}; 2 gloo ranks (subprocesses, {t_procs:.1f} s with "
+          f"start-up) both on {rank_dev}, since NCCL refuses two ranks on one "
+          f"GPU: tile_histogram launches per rank "
+          f"{[x['tile_histogram'] for x in ranks]}, "
+          f"{len(raw) / g_sec / 1e6:.3f} MB/s ({g_sec:.3f} s, the slower "
+          f"rank; two ranks share one card, so this is no scaling figure), "
+          f"bytes == phase 4 on both ranks, .dcx index ({gidx.n_blocks} "
+          f"blocks, {gidx.n_subs} entries) == the NCCL run's; its index in "
+          f"one flat decode_blocks_batch: ok, adler32 per shard and bytes "
+          f"OK; compress_file_resumable crashed after shard 3 "
+          f"({first} launches) and resumed at shard "
+          f"{info_r['resumed_at_shard']} ({second} launches): bytes == "
+          f"phase 4, zlib.decompress OK")
+    torch.cuda.synchronize()
+    return {"launches": launches,
+            "gloo_ranks": [x["tile_histogram"] for x in ranks],
+            "resumable": [first, second]}
+
+
+# --------------------------------------------------------- 13. the CLI
+
+# `python3 -m deflate_compression_tpu_torch` (runpy with alter_sys, as -m
+# runs it) that prints each kernel's launches in the process at exit
+_COUNTING_MAIN = r"""
+import atexit, json, runpy, sys
+from deflate_compression_tpu_torch.ops import decode_symbols as DS
+from deflate_compression_tpu_torch.ops import histogram as H
+from deflate_compression_tpu_torch.ops import lut_gather as LG
+
+
+def _counts():
+    print("LAUNCHES " + json.dumps({
+        "tile_histogram": H.tile_histogram.launches,
+        "decode_symbols": DS.decode_symbols.launches,
+        "lut_gather": LG.lut_gather.launches}), file=sys.stderr, flush=True)
+
+
+atexit.register(_counts)
+sys.argv[0] = "deflate_compression_tpu_torch"
+runpy.run_module("deflate_compression_tpu_torch", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def cli_phase(raw: bytes, blob: bytes, stats, px: np.ndarray, dev) -> dict:
+    """Phase 13: every subcommand in a subprocess on phase 4's corpus.
+    compress, trace and decompress --index run on the card through the
+    module's entry point with a launch count; decompress, inspect, verify
+    and png, which touch no card, as `python3 -m
+    deflate_compression_tpu_torch`. Returns the launches of each
+    kernel in each counted subcommand's process."""
+    import tempfile
+
+    from deflate_compression_tpu_torch.decode.index import build_index
+
+    with tempfile.TemporaryDirectory() as d:
+        def f(name):
+            return str(Path(d) / name)
+        Path(f("in.bin")).write_bytes(raw)
+        Path(f("p4.zz")).write_bytes(blob)
+        Path(f("in.png")).write_bytes(png_bytes(px))
+        counted = [sys.executable, "-c", _COUNTING_MAIN]
+        module = [sys.executable, "-m", "deflate_compression_tpu_torch"]
+        t0 = time.perf_counter()
+        res = run_procs({
+            "compress": counted + ["compress", f("in.bin"), "-o",
+                                   f("cli.zz"), "--index", f("cli.dcx"),
+                                   "--stats", f("cli.csv"), "--device",
+                                   dev.type],
+            "trace": counted + ["trace", f("in.bin"), "-o", f("trace.csv"),
+                                "--device", dev.type],
+            "decompress": module + ["decompress", f("p4.zz"), "-o",
+                                    f("p4.out")],
+            "inspect": module + ["inspect", f("p4.zz")],
+            "verify": module + ["verify", f("p4.zz"), "--original",
+                                f("in.bin"), "-v"],
+            "png": module + ["png", f("in.png"), "--raw", "-o",
+                             f("png.raw")]}, 600)
+        res.update(run_procs({"decompress --index": counted + [
+            "decompress", f("cli.zz"), "--index", f("cli.dcx"), "-o",
+            f("idx.out"), "--device", dev.type]}, 600))
+        t_all = time.perf_counter() - t0
+        got = {k: Path(f(k)).read_bytes() for k in (
+            "cli.zz", "cli.dcx", "cli.csv", "trace.csv", "p4.out",
+            "png.raw", "idx.out")}
+    counts = {k: json.loads(res[k][1].rsplit("LAUNCHES ", 1)[1])
+              for k in ("compress", "trace", "decompress --index")}
+    csv = stats.to_csv().encode()
+    checks = [
+        ("compress: phase 4's stream", got["cli.zz"] == blob),
+        ("compress: zlib.decompress", zlib.decompress(got["cli.zz"]) == raw),
+        ("compress --stats: phase 4's CSV", got["cli.csv"] == csv),
+        ("compress --index: build_index of the stream",
+         got["cli.dcx"] == build_index(blob[2:]).to_bytes()),
+        ("trace: phase 4's CSV", got["trace.csv"] == csv),
+        ("decompress", got["p4.out"] == raw),
+        ("decompress --index", got["idx.out"] == raw),
+        ("inspect", res["inspect"][0].splitlines()[-1].startswith("total: ")
+         and f" {len(raw)} bytes out," in res["inspect"][0]),
+        ("verify", "OK: " in res["verify"][1]
+         and "PASS original" in res["verify"][1]),
+        ("png --raw: phase 11's pixels",
+         got["png.raw"] == px[..., :3].tobytes()),
+        ("compress launches", counts["compress"]["tile_histogram"]
+         == 2 * math.ceil(len(raw) / (1 << 20))),
+        ("decompress --index launches",
+         min(counts["decompress --index"][k] for k in
+             ("decode_symbols", "lut_gather")) >= 1)]
+    bad = [name for name, ok in checks if not ok]
+    if bad:
+        raise AssertionError(f"CLI checks failed: {bad}; launches {counts}")
+    print(f"phase 13 CLI: {len(res)} subprocesses ({t_all:.1f} s, six at "
+          f"once, then decompress --index), seconds from their start to "
+          f"exit: {', '.join(f'{k} {v[2]:.1f}' for k, v in res.items())}; "
+          f"{len(checks)} checks true "
+          f"({', '.join(n for n, _ in checks)}); "
+          f"launches per process {counts}; inspect: "
+          f"{res['inspect'][0].splitlines()[-1]}")
+    torch.cuda.synchronize()
+    return counts
 
 
 if __name__ == "__main__":

@@ -44,21 +44,30 @@ with the encoder's index; the indexed device decoder (`decode_blocks`,
 `decode_blocks_batch`, `decompress_indexed`, `build_index`); the stream
 verifier (`decode/verify.py`), CRC-32 and the gzip container, the PNG
 decoder (`png/decoder.py`), the adaptive Huffman tree (`core/aht.py`) and
-the per-symbol trace (`utils/trace.py`, tokenized on the card). Host
-modules are copies of the JAX package's, with its names and outputs. Not
-yet ported: the distributed encode with checkpoint/resume, the CLI and the
-port's bench.
+the per-symbol trace (`utils/trace.py`, tokenized on the card); the
+data-parallel encode over torch.distributed (`parallel/dist.py`,
+`compress_distributed`, one rank per device, NCCL on the cards and gloo on
+the CPU) with its launcher (`parallel/launcher.py`) and checkpoint/resume
+of file encodes (`parallel/checkpoint.py`, `compress_file_resumable`); and
+the command line (`python -m deflate_compression_tpu_torch`, `cli.py`).
+Host modules are copies of the JAX package's, with its names and outputs.
+The port has no bench of its own yet.
 """
 
-__all__ = ["CodecConfig", "DeflateError", "PngError", "CompressStats",
-           "DeflateCodec", "ZlibCodec", "GzipCodec", "make_codec",
+__all__ = ["CodecConfig", "DeflateError", "PngError", "DistError",
+           "CompressStats", "DeflateCodec", "ZlibCodec", "GzipCodec",
+           "make_codec",
            "compress_stream", "compress_file", "DecodeIndex", "build_index",
            "index_from_shards", "decompress_indexed", "verify_stream",
-           "png_decode", "per_symbol_trace_csv"]
+           "png_decode", "per_symbol_trace_csv", "compress_distributed",
+           "compress_file_resumable"]
 
 _HOMES = {
     "CodecConfig": "utils.config", "DeflateError": "utils.errors",
-    "PngError": "utils.errors", "verify_stream": "decode.verify",
+    "PngError": "utils.errors", "DistError": "utils.errors",
+    "verify_stream": "decode.verify",
+    "compress_distributed": "parallel.dist",
+    "compress_file_resumable": "parallel.checkpoint",
     "png_decode": "png.decoder", "per_symbol_trace_csv": "utils.trace",
     **dict.fromkeys(("CompressStats", "DeflateCodec", "ZlibCodec",
                      "GzipCodec", "make_codec", "compress_stream",

@@ -283,8 +283,12 @@ def lanes(a: PhaseA, sub_bit, sub_out, sub_blk, n_subs, blk_end) -> Lanes:
     f = lut_gather(block_flags(a), lblk.to(torch.int32))
     llive = (llanes < n_subs) & (sub_blk >= 0) & ((f & 1) == 1)
     nxt = sub_out[(llanes + 1).clamp(max=max(NL - 1, 0))]
-    next_sub = torch.where(llanes + 1 < n_subs, nxt, 1 << 30)
-    lane_end = torch.minimum(next_sub, blk_end[lblk])
+    # a lane ends at the next entry or at its block's end; the last lane
+    # has no next entry and ends with its block (no constant sentinel,
+    # which a flat batch's offsets could pass)
+    lane_end = blk_end[lblk]
+    lane_end = torch.where(llanes + 1 < n_subs,
+                           torch.minimum(nxt, lane_end), lane_end)
     lbad = llive & ((f & 2) == 2)
     bp = torch.where(sub_bit >= 0, sub_bit, a.hdr_end[lblk])
     return Lanes(bp, sub_out, lane_end,
@@ -487,7 +491,9 @@ def flat_batch(comp_words, blk_bit, blk_out, blk_btype, n_blocks, sub_bit,
                      + sidx * S, -1)
     slive = sub_blk >= 0
     fsb = torch.where(slive, sub_bit + sidx * (CW * 32), -1)
-    fso = torch.where(slive, sub_out + sidx * S, 1 << 30)
+    # a dead lane's offset is the batch's end, which no live lane passes,
+    # so the live lane before it still ends with its block
+    fso = torch.where(slive, sub_out + sidx * S, B * S)
     fsk = torch.where(slive, sub_blk + sidx * NBs, -1)
     return dict(comp_words=w.reshape(-1), blk_bit=fb.reshape(-1),
                 blk_out=fo.reshape(-1), blk_btype=ft.reshape(-1),

@@ -7,6 +7,7 @@ from __future__ import annotations
 DOMAIN_GLOBAL = 0x0000000
 DOMAIN_DEFLATE = 0x1000000
 DOMAIN_PNG = 0x2000000
+DOMAIN_DIST = 0x3000000
 
 
 class CodecError(Exception):
@@ -36,4 +37,11 @@ class PngError(CodecError):
         "E_SIG", "E_CHLEN", "E_CHNAME", "E_CRC", "E_ORDER", "E_MULT",
         "E_IHDR", "E_PLTE", "E_IDAT", "E_DEPTH", "E_FILTER", "E_INTERLACE",
         "E_TEXT", "E_EOF",
+    ])}
+
+
+class DistError(CodecError):
+    domain = DOMAIN_DIST
+    _names = {n: i for i, n in enumerate([
+        "E_MESH", "E_SHARD", "E_GATHER", "E_RESUME",
     ])}

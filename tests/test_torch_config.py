@@ -88,6 +88,16 @@ def test_png_error_code_and_message_match_jax(name):
     assert isinstance(t, terr.CodecError)
 
 
+@pytest.mark.parametrize("name", ["E_MESH", "E_SHARD", "E_GATHER",
+                                  "E_RESUME", "E_UNKNOWN"])
+def test_dist_error_code_and_message_match_jax(name):
+    t, j = terr.DistError(name, "msg"), jerr.DistError(name, "msg")
+    assert (t.name, t.code, str(t)) == (j.name, j.code, str(j))
+    assert terr.DOMAIN_DIST == jerr.DOMAIN_DIST
+    assert isinstance(t, terr.CodecError)
+    assert not isinstance(t, jerr.CodecError)
+
+
 def test_native_index_matches_jax_bridge():
     import zlib
     raw = (b"native index pass of the port " * 4000)[:100_000]

@@ -71,6 +71,25 @@ from deflate_compression_tpu_torch.format.deflate import encode_shard, shard_byt
 big = np.frombuffer((data * 33)[:1_081_344], np.uint8).copy()
 r = encode_shard(torch.from_numpy(big), big.size, True)
 assert zlib.decompress(shard_bytes(r), wbits=-15) == big.tobytes()
+import os, tempfile
+from deflate_compression_tpu_torch import (compress_distributed,
+                                           compress_file_resumable)
+from deflate_compression_tpu_torch.cli import main
+from deflate_compression_tpu_torch.parallel.dist import make_mesh
+two = (data * 3)[:2 * 32768 + 99]
+out, idx = compress_distributed(two, make_mesh(device="cpu"),
+                                shard_size=32768, return_index=True)
+assert out == ZlibCodec(CodecConfig(shard_size=32768),
+                        device="cpu").compress(two) and idx.n_subs > 0
+with tempfile.TemporaryDirectory() as d:
+    src, dst = os.path.join(d, "in"), os.path.join(d, "out")
+    open(src, "wb").write(two)
+    info = compress_file_resumable(src, dst, CodecConfig(shard_size=32768),
+                                   device="cpu")
+    assert open(dst, "rb").read() == out and info["n_shards"] == 3
+    assert main(["compress", src, "-o", dst + ".cli", "--shard-size",
+                 "32768", "--device", "cpu"]) == 0
+    assert open(dst + ".cli", "rb").read() == out
 assert sys.modules["jax"] is None
 assert sys.modules["deflate_compression_tpu"] is None
 assert not any(m.startswith(("jax.", "deflate_compression_tpu."))
@@ -174,3 +193,35 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build(src)
+
+
+def test_distributed_entry_points_default_device_is_cuda(monkeypatch,
+                                                         tmp_path):
+    from deflate_compression_tpu_torch import (compress_distributed,
+                                               compress_file_resumable)
+    from deflate_compression_tpu_torch.cli import main
+    from deflate_compression_tpu_torch.parallel.launcher import \
+        init_distributed
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = tmp_path / "in"
+    src.write_bytes(b"no card, no fallback " * 100)
+    with pytest.raises(RuntimeError):
+        compress_distributed(src.read_bytes())
+    with pytest.raises(RuntimeError):
+        compress_file_resumable(str(src), str(tmp_path / "out"))
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError):
+        init_distributed()
+    with pytest.raises(RuntimeError):
+        init_distributed(device="cuda:0")
+    with pytest.raises(RuntimeError):
+        main(["compress", str(src), "-o", str(tmp_path / "o"),
+              "--distributed"])
+    from deflate_compression_tpu_torch.decode.index import DecodeIndex
+    (tmp_path / "e.raw").write_bytes(b"\x01\x00\x00\xff\xff")
+    (tmp_path / "e.dcx").write_bytes(DecodeIndex(
+        np.zeros(1, np.int64), np.zeros(1, np.int64), np.zeros(1, np.uint8),
+        0).to_bytes())
+    with pytest.raises(RuntimeError):
+        main(["decompress", str(tmp_path / "e.raw"), "--index",
+              str(tmp_path / "e.dcx")])

@@ -65,6 +65,56 @@ def test_lanes_past_old_block_cap_match_jax_formula(nb, seed):
     assert bool(ln.lbad.any()) and bool(ln.llive.any())
 
 
+def _flat_plan(out_size: int, copies: int = 5):
+    """flat_batch and plan (phase A and the lanes, no phase C) of `copies`
+    copies of one encoded 64 KB shard at `out_size` output bytes per shard;
+    also the lane ends the old constant sentinel 1 << 30 gave."""
+    from deflate_compression_tpu_torch import corpus
+    from deflate_compression_tpu_torch.format.deflate import encode_shard
+    S = 1 << 16
+    raw = corpus.build_corpus(S, seed=5)
+    r = encode_shard(torch.from_numpy(np.frombuffer(raw, np.uint8).copy()),
+                     S, True)
+    keys = ("block_bit_base", "block_out_start", "btype", "n_blocks",
+            "sub_bit", "sub_out", "sub_blk")
+    batch = [r["words"].expand(copies, -1)] + [
+        r[k].expand(copies, *r[k].shape) for k in keys]
+    flat = DI.flat_batch(*batch, torch.full((copies,), S), out_size)
+    p = DI.plan(**flat)
+    so = torch.where(flat["sub_blk"] >= 0, flat["sub_out"], 1 << 30)
+    nl = so.shape[0]
+    nxt = torch.where(torch.arange(nl) + 1 < nl,
+                      so[(torch.arange(nl) + 1).clamp(max=nl - 1)], 1 << 30)
+    old_end = torch.minimum(nxt, p.blk_end[flat["sub_blk"].clamp(min=0)])
+    return p, old_end
+
+
+def test_flat_lanes_past_2_30_output_bytes_end_after_their_start():
+    """Shard 4 of a batch at 2^28 bytes per shard starts at 2^30: every
+    live lane still ends at or after its start (the old sentinel cut one
+    lane there), and each shard's lanes are the first shard's, shifted."""
+    p, old_end = _flat_plan(1 << 28)
+    live = p.ln.llive
+    assert bool(live.any())
+    assert not bool((live & (p.ln.lane_end < p.ln.ocur)).any())
+    assert bool((live & (old_end < p.ln.ocur)).any())     # the old fault
+    span = (p.ln.lane_end - p.ln.ocur).view(5, -1)
+    lv = live.view(5, -1)
+    assert bool((lv == lv[0]).all())
+    assert torch.equal(torch.where(lv, span, 0),
+                       torch.where(lv, span[0], 0).expand_as(span))
+
+
+def test_flat_lanes_below_2_30_unchanged_by_the_sentinel():
+    """At 65536 bytes per shard every lane ends where the old constant
+    sentinel ended it, and no live lane ends before its start."""
+    p, old_end = _flat_plan(1 << 16)
+    assert torch.equal(p.ln.lane_end, old_end)
+    live = p.ln.llive
+    assert bool(live.any())
+    assert not bool((live & (p.ln.lane_end < p.ln.ocur)).any())
+
+
 @pytest.mark.parametrize("n_tbl", [65536, 1 << 20])
 def test_lut_gather_cpu_takes_table_past_old_cap(n_tbl):
     rng = np.random.default_rng(n_tbl)
