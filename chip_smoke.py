@@ -18,29 +18,39 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      checked by zlib.decompress, with the kernel's launch count;
   5. encode_shard on the card against the port on the CPU, bit for bit, for
      the first and the last shard, and the whole stream of phase 4;
-  6. build: decode_symbols.cu and lut_gather.cu (compiled in phase 2)
-     loaded;
-  7. decode_symbols and lut_gather against their plain versions, exactly,
+  6. build: decode_symbols.cu, lut_gather.cu, build_tables.cu and
+     copy_sources.cu (compiled in phase 2) loaded;
+  7. the decoder's four kernels against their plain versions, exactly:
      decode_symbols on the corpus's first and last shards and on the whole
      flat batch (its wrapper once under sync debug mode "error"),
      lut_gather at the probe's (2048, 4096), the block-flag lookup, a
      table past 32768 entries and a bandwidth-bound 2^24 indices (in GB/s,
-     beside a device-to-device copy of the same bytes); each kernel's and
-     plain version's times as in phase 3, with bound and library call;
+     beside a device-to-device copy of the same bytes), build_tables
+     (phase A) and copy_sources (phase C's bytes) on the flat batch, each
+     once under sync debug mode "error"; each kernel's and plain version's
+     times as in phase 3, with bound and library call;
   8. the decode slice: compress_stream with an index sink, then
      decode_blocks_batch over all shards in one flat call (adler32 per
-     shard, bytes, verified-decode MB/s, launch counts, phase times),
-     decompress_indexed of the stream with the encoder's index, and of a
-     foreign zlib-9 stream through build_index;
-  9. strictness on the card and GPU against CPU: seeded bit flips flagged
-     or rejected with the CPU's ok and bad lanes, decompress_indexed
-     raising on each, the declared-window violation, clean shards equal;
+     shard, bytes, verified-decode MB/s, one launch of each of the four
+     decode kernels, phase times beside the plain versions' in the same
+     run), decompress_indexed of the stream with the encoder's index (the
+     four kernels once per group), and of a foreign zlib-9 stream through
+     build_index, then once more with build_tables and copy_sources held
+     against their plain versions in every group (15-bit codes, the prefix
+     carried), and the same for the flat decode of a block_type="fixed"
+     and a block_type="stored" encode of 2 MB;
+  9. strictness on the card and GPU against CPU: seeded bit flips at lane
+     starts and inside dynamic headers flagged or rejected with the CPU's
+     ok and bad lanes (build_tables and copy_sources held against their
+     plain versions in each mutated decode), decompress_indexed raising,
+     the declared-window violation, clean shards equal;
  10. large shards: a 32 MB corpus in 4 MB shards through ZlibCodec on the
      card (zlib.decompress, tile_histogram launches, MB/s beside phase
      4's, peak device memory), the first and last shard GPU == CPU,
      compress_stream's index into one flat decode_blocks_batch (adler32
-     per shard, bytes, decode_symbols and lut_gather once each and equal
-     to their plain versions on that batch, phase times), and
+     per shard, bytes, the four decode kernels once each and equal to
+     their plain versions on that batch, phase times beside the plain
+     versions'), and
      decompress_indexed with the encoder's index;
  11. the codec's surface: the raw, zlib and gzip codecs compress the 8.5
      MB corpus on the card and decompress it on the host (zlib / gzip
@@ -67,13 +77,19 @@ version, and its device time per launch (`ms`), its plain version's
 (`plain_ms`), the bound (`bound_ms`: the bytes it must move over 3.35
 TB/s; the operations are far below the peak rates) and `share_of_bound`,
 each computed from this run; tile_histogram's `rows128_*` keys are the
-same at (128, 32768). The last line is the JSON result
+same at (128, 32768); build_tables and copy_sources carry `ms_4mb`,
+`bound_ms_4mb` and `share_of_bound_4mb` on phase 10's batch, and
+`call_ms_4mb` and `plain_call_ms_4mb`, one call each there by CUDA events,
+and copy_sources `bound_with_gathers_ms`, its bound with the pointer
+rounds' gathers added. The last line is the JSON result
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +117,9 @@ PHASE5_KEYS = ("total_bits", "btype", "block_bits", "sub_bit", "sub_out",
 IDX_KEYS = ("block_bit_base", "block_out_start", "btype", "n_blocks",
             "sub_bit", "sub_out", "sub_blk")
 N_MUTATIONS = 6
+N_HEADER_MUTATIONS = 4           # phase 9: flips inside dynamic headers
+DECODE_KERNELS = ("build_tables", "lut_gather", "decode_symbols",
+                  "copy_sources")
 WINDOW = 32768
 
 
@@ -109,17 +128,21 @@ TABLE_BYTES = 17_792             # one block's decode tables (decode_symbols.cu)
 
 
 def timings(kernel: str, fn, plain, n: int, prof_n: int,
-            bound_bytes: int) -> dict:
+            bound_bytes: int, reps: int = 25, plain_n: int | None = None
+            ) -> dict:
     """A kernel's and its plain version's times: per call (`cuda_ms`), on
-    the device per launch (`device_ms`, n calls) and by kernel name under
+    the device per launch (`device_ms`, n calls, plain_n of a slow plain
+    version) and by kernel name under
     torch.profiler (`profiled_ms`, prof_n calls; the kernel's own entries,
     and every device entry of the plain version); and the bound, the
     bytes the function must move over the card's memory rate."""
-    t = {"call_ms": cuda_ms(fn), "plain_call_ms": cuda_ms(plain)}
+    t = {"call_ms": cuda_ms(fn, reps), "plain_call_ms": cuda_ms(plain, reps)}
     t["device_ms"], t["held"] = device_ms(fn, n)
-    t["plain_device_ms"], t["plain_held"] = device_ms(plain, n)
+    t["plain_device_ms"], t["plain_held"] = device_ms(plain, plain_n or n)
     by = profiled_ms(fn, prof_n)
     t["prof_ms"] = sum(v for k, v in by.items() if kernel in k)
+    t["by_kernel"] = {re.search(r"\w*_kernel|$", k).group() or k: v
+                      for k, v in by.items() if kernel in k}
     plain_by = profiled_ms(plain, prof_n)
     t["plain_prof_ms"] = sum(plain_by.values())
     t["plain_kernels"] = len(plain_by)
@@ -128,7 +151,7 @@ def timings(kernel: str, fn, plain, n: int, prof_n: int,
     t["ms"] = t["device_ms"] if t["held"] else t["prof_ms"]
     t["plain_ms"] = (t["plain_device_ms"] if t["plain_held"]
                      else t["plain_prof_ms"])
-    t["bound_ms"] = bound_bytes / (HBM_GBS * 1e9) * 1e3
+    t["bound_ms"] = bound_ms(bound_bytes)
     t["bound_by"] = "bytes"
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
     return t
@@ -169,6 +192,8 @@ def main() -> int:
     from deflate_compression_tpu_torch import CodecConfig
     from deflate_compression_tpu_torch.corpus import build_corpus
     from deflate_compression_tpu_torch.models.codec import ZlibCodec
+    from deflate_compression_tpu_torch.ops import build_tables as BT
+    from deflate_compression_tpu_torch.ops import copy_sources as CS
     from deflate_compression_tpu_torch.ops import cuda_build
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
     from deflate_compression_tpu_torch.ops import histogram as H
@@ -187,16 +212,17 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    builds = [cuda_build.Build(src) for src in (H.SOURCE, DS.SOURCE,
-                                                  LG.SOURCE)]
+    builds = [cuda_build.Build(src) for src in (
+        H.SOURCE, DS.SOURCE, LG.SOURCE, BT.SOURCE, CS.SOURCE)]
     lib = builds[0].wait()
     t_hist = time.perf_counter() - t0
-    ds_lib, lg_lib = builds[1].wait(), builds[2].wait()
+    ds_lib, lg_lib, bt_lib, cs_lib = (b.wait() for b in builds[1:])
     t_ds = time.perf_counter() - t0
     print(f"phase 2 build: nvcc started on tile_histogram.cu, "
-          f"decode_symbols.cu and lut_gather.cu together; {lib.name} in "
-          f"{t_hist:.2f} s, {ds_lib.name} and {lg_lib.name} done {t_ds:.2f} s "
-          f"after the start")
+          f"decode_symbols.cu, lut_gather.cu, build_tables.cu and "
+          f"copy_sources.cu together; {lib.name} in {t_hist:.2f} s, "
+          f"{ds_lib.name}, {lg_lib.name}, {bt_lib.name} and {cs_lib.name} "
+          f"done {t_ds:.2f} s after the start")
     torch.cuda.synchronize()
 
     # ------------------------------------------ 3. kernel vs plain version
@@ -288,17 +314,27 @@ def main() -> int:
           f"{len(blob)}-byte zlib stream identical")
     torch.cuda.synchronize()
 
-    decode = decode_phases(raw, cfg, blob, dev, (ds_lib.name, lg_lib.name),
-                           t_ds)
+    decode = decode_phases(raw, cfg, blob, dev,
+                           (ds_lib.name, lg_lib.name, bt_lib.name,
+                            cs_lib.name), t_ds)
     large = large_shard_phase(dev, len(raw) / dt)
     px = surface_phase(raw, dev)
     dist = dist_phase(raw, cfg, blob, dev, len(raw) / dt)
     cli = cli_phase(raw, blob, stats, px, dev)
 
     def new_paths(name):
-        return {"launches_4mb": large[name],
-                "launches_dist": dist["launches"][name],
-                "launches_cli": {k: v[name] for k, v in cli.items()}}
+        paths = {"launches_4mb": large[name],
+                 "launches_dist": dist["launches"][name],
+                 "launches_cli": {k: v[name] for k, v in cli.items()}}
+        phase = {"build_tables": "A", "copy_sources": "C"}.get(name)
+        if phase:       # phase 10's flat batch; the calls one each, by events
+            paths["ms_4mb"] = large["device_ms"][name]
+            paths["bound_ms_4mb"] = large["bound_ms"][name]
+            paths["share_of_bound_4mb"] = (large["bound_ms"][name]
+                                           / large["device_ms"][name])
+            paths["call_ms_4mb"] = large["phases"][phase + "_kernel"]
+            paths["plain_call_ms_4mb"] = large["phases"][phase + "_plain"]
+        return paths
 
     print(json.dumps({"kernels": [{
         "name": "tile_histogram", "route": "cuda",
@@ -389,12 +425,10 @@ def verified_decode(raw: bytes, batch, valid, S: int):
     """One flat decode_blocks_batch over every shard of `batch`, checked
     on the card: ok, adler32 per shard equal to zlib's of the input, and
     the bytes. Returns (result, host seconds of the decode and its adler32
-    checks, decode_symbols and lut_gather launches in it); the first call
-    warms up."""
+    checks, every kernel's launches in it: one of each decode kernel); the
+    first call warms up."""
     from deflate_compression_tpu_torch.core.checksum import adler32_torch
     from deflate_compression_tpu_torch.decode import device_inflate as DI
-    from deflate_compression_tpu_torch.ops import decode_symbols as DS
-    from deflate_compression_tpu_torch.ops import lut_gather as LG
     nsh = len(valid)
     want = [zlib.adler32(raw[s * S:(s + 1) * S]) for s in range(nsh)]
 
@@ -406,15 +440,15 @@ def verified_decode(raw: bytes, batch, valid, S: int):
 
     run()
     torch.cuda.synchronize()
-    DS.decode_symbols.launches = LG.lut_gather.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     res, ok, ads = run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = (DS.decode_symbols.launches, LG.lut_gather.launches)
-    if launches != (1, 1):
+    launches = read_counts()
+    if launches != {"tile_histogram": 0, **{k: 1 for k in DECODE_KERNELS}}:
         raise AssertionError(f"flat decode of {S}-byte shards launched "
-                             f"decode_symbols and lut_gather {launches} times")
+                             f"{launches}")
     if not ok or ads != want:
         raise AssertionError(f"flat decode of {S}-byte shards: ok {ok}, "
                              f"adler {ads} != {want}")
@@ -427,9 +461,14 @@ def verified_decode(raw: bytes, batch, valid, S: int):
 
 
 def phase_times(flat: dict, out_size: int):
-    """Milliseconds of the decoder's phases A (plan), B and C by CUDA
-    events around one flat decode, and phase C's result."""
+    """Milliseconds of the decoder's phases by CUDA events around one flat
+    decode: A (plan: the index moved, build_tables, the lanes), B and C;
+    then, in the same run and on the same inputs, the two kernels' wrappers
+    alone and their plain versions (A_kernel, A_plain, C_kernel, C_plain).
+    Returns (times, phase C's result)."""
     from deflate_compression_tpu_torch.decode import device_inflate as DI
+    from deflate_compression_tpu_torch.ops import build_tables as BT
+    from deflate_compression_tpu_torch.ops import copy_sources as CS
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
     p = DI.plan(**flat)
@@ -439,7 +478,100 @@ def phase_times(flat: dict, out_size: int):
     r = DI.phase_c(p, b, out_size)
     ev[3].record()
     torch.cuda.synchronize()
-    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)], r
+    t = dict(zip("ABC", (ev[i].elapsed_time(ev[i + 1]) for i in range(3))))
+    a_args, c_args = phase_args(flat, p, b.tok, out_size)
+    for key, fn, args in (("A_kernel", BT.build_tables, a_args),
+                          ("A_plain", BT.build_tables_ref, a_args),
+                          ("C_kernel", CS.resolve_bytes, c_args),
+                          ("C_plain", CS.resolve_bytes_ref, c_args)):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        fn(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        t[key] = e0.elapsed_time(e1)
+    return t, r
+
+
+def show_phases(t: dict) -> str:
+    return (f"phases by CUDA events: A {t['A']:.2f} ms (build_tables alone "
+            f"{t['A_kernel']:.3f} ms, its plain version {t['A_plain']:.2f} "
+            f"ms), B {t['B']:.2f} ms, C {t['C']:.2f} ms (resolve_bytes "
+            f"alone {t['C_kernel']:.3f} ms, its plain version "
+            f"{t['C_plain']:.2f} ms)")
+
+
+def phase_args(flat: dict, p, tok, out_size: int):
+    """The arguments of build_tables and of resolve_bytes in the decode of
+    `flat` whose plan is p and whose tokens are tok."""
+    dev = p.w.device
+    return ((p.w, p.blk_bit, flat["blk_btype"],
+             torch.tensor(flat["n_blocks"], device=dev)),
+            (p.w, tok, p.blk_bit, p.blk_out, p.blk_end, p.a.blive,
+             p.a.is_sto, out_size))
+
+
+def build_tables_bytes(a, blk_bit, blk_btype) -> tuple:
+    """The bytes build_tables must move for phase A's result `a`: the
+    dynamic headers it parses, the index read (bit, btype), and per block
+    slot its tables, header end and four flags. Returns (bytes, dynamic
+    blocks, their header bytes)."""
+    NB = blk_bit.numel()
+    dyn = a.blive & (blk_btype == 2)
+    hdr = int(((a.hdr_end - blk_bit + 7) >> 3)[dyn].sum())
+    return hdr + NB * 16 + NB * (TABLE_BYTES + 8 + 4), int(dyn.sum()), hdr
+
+
+def copy_sources_bytes(S: int, NB: int, stats: dict) -> tuple:
+    """The bytes resolve_bytes must move: the tokens read (4 per position),
+    the bytes written, the block table and the stored blocks' bytes; and,
+    apart, the pointer rounds' gathers as the plain version ran them (4
+    bytes per pointer still open per round), the algorithm's own traffic."""
+    return (5 * S + NB * 26 + stats["stored_bytes"],
+            4 * sum(stats["tagged"]))
+
+
+def bound_ms(n_bytes: int) -> float:
+    return n_bytes / (HBM_GBS * 1e9) * 1e3
+
+
+def leaves(x) -> list:
+    """The tensors of a kernel's result (a tensor or nested tuples), in
+    order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in leaves(y)]
+
+
+@contextlib.contextmanager
+def against_plain(tally: dict, label: str):
+    """While open, every call of build_tables and resolve_bytes (the
+    decoder's phases A and C, wherever the port makes it) also runs the
+    plain version on the same arguments and holds the kernel's result
+    against it: tolerance 0, or raise. tally[name] counts the calls held.
+    The wrappers go on counting their launches."""
+    from deflate_compression_tpu_torch.ops import build_tables as BT
+    from deflate_compression_tpu_torch.ops import copy_sources as CS
+    saved = []
+    for mod, name, kernel in ((BT, "build_tables", "build_tables"),
+                              (CS, "resolve_bytes", "copy_sources")):
+        fn, ref = getattr(mod, name), getattr(mod, name + "_ref")
+
+        def checked(*a, _fn=fn, _ref=ref, _kernel=kernel, **k):
+            got = _fn(*a, **k)
+            same(leaves(got), leaves(_ref(*a, **k)), f"{_kernel}, {label}")
+            tally[_kernel] = tally.get(_kernel, 0) + 1
+            return got
+        # the wrapper counts on its module's name, which is `checked` now
+        checked.launches = fn.launches
+        setattr(mod, name, checked)
+        saved.append((mod, name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            fn.launches = getattr(mod, name).launches
+            setattr(mod, name, fn)
 
 
 def same(got, want, what):
@@ -482,20 +614,24 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
                   t_build: float):
     """Phases 6-9: the decoder's kernels and the decode slice. Returns the
     decode kernels' entries of the kernels JSON line."""
+    from deflate_compression_tpu_torch import CodecConfig
     from deflate_compression_tpu_torch.core.checksum import adler32_torch
     from deflate_compression_tpu_torch.corpus import repo_text
     from deflate_compression_tpu_torch.decode import device_inflate as DI
     from deflate_compression_tpu_torch.decode.index import (
         DeflateError, build_index, decompress_indexed, index_from_shards,
         native_available)
+    from deflate_compression_tpu_torch.models.codec import ZlibCodec
+    from deflate_compression_tpu_torch.ops import build_tables as BT
+    from deflate_compression_tpu_torch.ops import copy_sources as CS
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
     from deflate_compression_tpu_torch.ops import lut_gather as LG
 
     S = cfg.shard_size
     # ----------------------------------------------------------- 6. build
-    DS._bind()
-    LG._bind()
-    print(f"phase 6 build: {' and '.join(lib_names)} loaded; nvcc ran "
+    for mod in (DS, LG, BT, CS):
+        mod._bind()
+    print(f"phase 6 build: {', '.join(lib_names)} loaded; nvcc ran "
           f"alongside tile_histogram.cu, all done {t_build:.2f} s after the "
           f"start of phase 2")
     torch.cuda.synchronize()
@@ -586,10 +722,52 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
               f"(the same bytes) {copy_ms:.4f} ms")
     torch.cuda.synchronize()
 
+    # build_tables and copy_sources on the flat batch, as the decode of
+    # phase 8 calls them
+    a_args, c_args = phase_args(flat, pf, got.tok, nsh * S)
+    a_want = BT.build_tables_ref(*a_args)
+    bt_err = same(leaves(BT.build_tables(*a_args)), leaves(a_want),
+                  "build_tables flat batch")
+    same(leaves(no_sync(lambda: BT.build_tables(*a_args))), leaves(a_want),
+         "build_tables under sync debug mode")
+    NB = pf.blk_bit.numel()
+    bt_bytes, n_dyn, hdr_bytes = build_tables_bytes(a_want, pf.blk_bit,
+                                                    flat["blk_btype"])
+    bt_t = timings("build_tables_kernel", lambda: BT.build_tables(*a_args),
+                   lambda: BT.build_tables_ref(*a_args), 20, 3, bt_bytes,
+                   reps=5, plain_n=3)
+    print(f"phase 7 build_tables: tolerance 0 (exact); == plain in every "
+          f"field of {NB} block slots ({int(a_want.blive.sum())} live, "
+          f"{n_dyn} dynamic with {hdr_bytes} header bytes, "
+          f"{int(a_want.is_sto.sum())} stored, {bt_bytes} bytes to move); "
+          f"the wrapper ran under sync debug mode \"error\": {show(bt_t)}; "
+          f"no single PyTorch call computes this function")
+
+    cs_stats = {}
+    c_want = CS.resolve_bytes_ref(*c_args, stats=cs_stats)
+    cs_err = same(leaves(CS.resolve_bytes(*c_args)), leaves(c_want),
+                  "copy_sources flat batch")
+    same(leaves(no_sync(lambda: CS.resolve_bytes(*c_args))), leaves(c_want),
+         "copy_sources under sync debug mode")
+    cs_bytes, gather_bytes = copy_sources_bytes(nsh * S, NB, cs_stats)
+    cs_t = timings("copy_sources_", lambda: CS.resolve_bytes(*c_args),
+                   lambda: CS.resolve_bytes_ref(*c_args), 20, 3, cs_bytes,
+                   reps=5, plain_n=3)
+    cs_t["bound_with_gathers_ms"] = bound_ms(cs_bytes + gather_bytes)
+    print(f"phase 7 copy_sources: tolerance 0 (exact); bytes, bad_dist and "
+          f"unconverged == plain on {nsh * S} positions ({cs_bytes} bytes to "
+          f"move; the plain version ran {len(cs_stats['tagged'])} rounds over "
+          f"{cs_stats['tagged']} open pointers, {gather_bytes} bytes of "
+          f"gathers, bound with them {cs_t['bound_with_gathers_ms']:.5f} "
+          f"ms; {cs_stats['stored_bytes']} stored bytes); the wrapper ran "
+          f"under sync debug mode \"error\": {show(cs_t)}; no single PyTorch "
+          f"call computes this function; profiler ms per call by kernel: "
+          f"{ {k: round(v, 4) for k, v in cs_t['by_kernel'].items()} }")
+    torch.cuda.synchronize()
+
     # ------------------------------------------------- 8. the decode slice
     want_adler = [zlib.adler32(raw[s_ * S:(s_ + 1) * S]) for s_ in range(nsh)]
-    res, dt, (ds_launches, lg_launches) = verified_decode(raw, batch, valid,
-                                                          S)
+    res, dt, flat_launches = verified_decode(raw, batch, valid, S)
     ph, rt = phase_times(flat, nsh * S)
     in_shard = torch.arange(S, device=dev) < torch.tensor(
         valid, device=dev).unsqueeze(1)
@@ -598,17 +776,18 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
         raise AssertionError("phase-by-phase decode differs")
 
     index = index_from_shards(*zip(*sink))
-    DS.decode_symbols.launches = LG.lut_gather.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     got_raw = decompress_indexed(body, index, expected_adler=zlib.adler32(raw),
                                  device=dev)
     t_idx = time.perf_counter() - t0
-    idx_launches = (DS.decode_symbols.launches, LG.lut_gather.launches)
+    idx_launches = read_counts()
     if got_raw != raw:
         raise AssertionError("decompress_indexed != input")
-    if min(idx_launches) < 1:
-        raise AssertionError(f"decompress_indexed launched decode_symbols "
-                             f"and lut_gather {idx_launches} times")
+    n_groups = idx_launches["build_tables"]
+    if n_groups < 2 or idx_launches != {
+            "tile_histogram": 0, **{k: n_groups for k in DECODE_KERNELS}}:
+        raise AssertionError(f"decompress_indexed launched {idx_launches}")
 
     fraw = raw[:FOREIGN_BYTES]
     z9 = zlib.compress(fraw, 9)
@@ -624,21 +803,51 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
     if got9 != fraw:
         raise AssertionError("foreign zlib-9 stream: decompress_indexed != "
                              "input")
+    # the same decode once more with phases A and C held against their plain
+    # versions in every group (codes up to 15 bits, the prefix carried)
+    held = {}
+    with against_plain(held, "foreign zlib-9 groups"):
+        if decompress_indexed(body9, idx9, device=dev) != fraw:
+            raise AssertionError("foreign zlib-9 stream, held against the "
+                                 "plain versions: bytes differ")
+    held9 = dict(held)
+    if min(held9.get(k, 0) for k in ("build_tables", "copy_sources")) < 2:
+        raise AssertionError(f"foreign zlib-9 stream: compared {held9}")
+    # fixed and stored encodes of 2 MB, decoded in one flat batch
+    part = raw[:2 * S]
+    for bt in ("fixed", "stored"):
+        bcfg = CodecConfig(block_type=bt)
+        bblob = ZlibCodec(bcfg, device=dev).compress(part)
+        if zlib.decompress(bblob) != part:
+            raise AssertionError(f"block_type={bt}: zlib.decompress differs")
+        _, _, bst, bvalid, bbatch = stream_batch(part, bcfg, bblob, dev)
+        want_bt = {"fixed": 1, "stored": 0}[bt]
+        if set(bst["btype"][bst["btype"] >= 0].tolist()) != {want_bt}:
+            raise AssertionError(f"block_type={bt}: other block types")
+        with against_plain(held, f"block_type={bt}"):
+            rb = DI.decode_blocks_batch(*bbatch, bvalid, S)
+        if not bool(rb["ok"]) or rb["out"].cpu().numpy().tobytes() != part:
+            raise AssertionError(f"block_type={bt}: flat decode differs")
+    if min(held[k] - held9[k] for k in held9) != 2:
+        raise AssertionError(f"fixed and stored encodes: compared {held}")
     t0 = time.perf_counter()
     zlib.decompress(blob)
     t_z = time.perf_counter() - t0
     print(f"phase 8 decode slice: {len(raw)} bytes, {nsh} shards, "
           f"{n_lanes} lanes in one flat decode_blocks_batch: verified "
           f"decode {len(raw) / dt / 1e6:.3f} MB/s ({dt:.3f} s, adler32 per "
-          f"shard OK, bytes OK), decode_symbols launches {ds_launches}, "
-          f"lut_gather launches {lg_launches}; phases by CUDA events: A "
-          f"{ph[0]:.2f} ms, B {ph[1]:.2f} ms, C {ph[2]:.2f} ms; "
+          f"shard OK, bytes OK), launches {flat_launches}; "
+          f"{show_phases(ph)}; "
           f"decompress_indexed with the encoder's index "
-          f"{len(raw) / t_idx / 1e6:.3f} MB/s ({index.n_subs} entries; "
-          f"decode_symbols and lut_gather launches {idx_launches}); "
+          f"{len(raw) / t_idx / 1e6:.3f} MB/s ({index.n_subs} entries, "
+          f"{n_groups} groups; launches {idx_launches}); "
           f"foreign zlib-9 {len(fraw)} bytes: build_index "
           f"({'native' if native else 'python'}) {t_bi:.3f} s, "
-          f"decompress_indexed {len(fraw) / t_f / 1e6:.3f} MB/s, OK; host "
+          f"decompress_indexed {len(fraw) / t_f / 1e6:.3f} MB/s, OK; again "
+          f"with build_tables and copy_sources == their plain versions in "
+          f"every group ({held9} calls held, tolerance 0), and in the flat "
+          f"decode of a block_type=\"fixed\" and a block_type=\"stored\" "
+          f"encode of {len(part)} bytes; host "
           f"zlib inflate {len(raw) / t_z / 1e6:.1f} MB/s")
     torch.cuda.synchronize()
 
@@ -653,11 +862,13 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
                                                replace=False)
     cpu_args = [a.cpu() for a in batch]
     n_bad = 0
+    held_mut = {}
     for lane in picks:
         bit = int(sb0[lane])
         wm = batch[0][0].clone()
         wm[bit >> 5] ^= 1 << (bit & 31)
-        g = DI.decode_blocks(*shard_args(0, wm), S)
+        with against_plain(held_mut, f"mutation at bit {bit}"):
+            g = DI.decode_blocks(*shard_args(0, wm), S)
         c = DI.decode_blocks(wm.cpu(), *[x[0] for x in cpu_args[1:]],
                              cpu_args[-1].shape[1], valid[0], S)
         if bool(g["ok"]) != bool(c["ok"]) or not torch.equal(
@@ -681,6 +892,33 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
         else:
             raise AssertionError(f"decompress_indexed accepted the "
                                  f"mutation at bit {bit}")
+
+    # flips inside the dynamic headers of shard 0: blocks go bad in phase A
+    bb0 = stacked["block_bit_base"][0]
+    dyn0 = np.flatnonzero(bt0 == 2)
+    hrng = np.random.default_rng(4321)
+    n_bbad = 0
+    for _ in range(N_HEADER_MUTATIONS):
+        bit = int(bb0[hrng.choice(dyn0)]) + 3 + int(hrng.integers(0, 200))
+        wm = batch[0][0].clone()
+        wm[bit >> 5] ^= 1 << (bit & 31)
+        with against_plain(held_mut, f"header mutation at bit {bit}"):
+            g = DI.decode_blocks(*shard_args(0, wm), S)
+            n_bbad += int(BT.build_tables(
+                DI._words(wm), batch[1][0].long(), batch[3][0].long(),
+                batch[4][0].long().reshape(1)).bbad.any())
+        c = DI.decode_blocks(wm.cpu(), *[x[0] for x in cpu_args[1:]],
+                             cpu_args[-1].shape[1], valid[0], S)
+        if bool(g["ok"]) != bool(c["ok"]) or not torch.equal(
+                g["bad_lanes"].cpu(), c["bad_lanes"]):
+            raise AssertionError(f"header mutation at bit {bit}: GPU and "
+                                 f"CPU differ in ok or bad lanes")
+        if bool(g["ok"]) and int(adler32_torch(
+                g["out"][:valid[0]], valid[0])) == want_adler[0]:
+            raise AssertionError(f"header mutation at bit {bit} not "
+                                 f"rejected")
+    if n_bbad == 0:
+        raise AssertionError("no header mutation flagged a block bad")
 
     pat = b"The quick brown fox jumps over the lazy dog 0123456789!"
     wdata = pat * 20 + bytes(np.random.default_rng(3).integers(
@@ -707,21 +945,44 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
     print(f"phase 9 strictness: {N_MUTATIONS} seeded bit flips at lane "
           f"starts of shard 0: {n_bad} flagged bad, the rest rejected by "
           f"adler32, ok and bad lanes equal on GPU and CPU, "
-          f"decompress_indexed raised DeflateError on each; window "
+          f"decompress_indexed raised DeflateError on each; "
+          f"{N_HEADER_MUTATIONS} flips inside dynamic headers: {n_bbad} "
+          f"flagged a block bad in phase A, all flagged or rejected by "
+          f"adler32, GPU == CPU; build_tables and copy_sources == their "
+          f"plain versions in every mutated decode ({held_mut} calls held, "
+          f"tolerance 0); window "
           f"violation raised at max_dist=512 and decoded at 32768; clean "
           f"shards 0 and {nsh - 1}: GPU == CPU (out, ok, bad lanes)")
     torch.cuda.synchronize()
 
-    return [{"name": "decode_symbols", "route": "cuda",
+    return [{"name": "build_tables", "route": "cuda",
+             "source": "deflate_compression_tpu_torch/csrc/build_tables.cu",
+             "replaces": "deflate_compression_tpu/decode/tpu_inflate.py:352 "
+                         "(left to XLA there: no Pallas kernel)",
+             "launches": flat_launches["build_tables"],
+             "launches_indexed": idx_launches["build_tables"],
+             "max_abs_err": bt_err, **entry(bt_t), "library_ms": None,
+             "held_against_plain": {"foreign_and_block_types": held,
+                                    "mutations": held_mut}},
+            {"name": "copy_sources", "route": "cuda",
+             "source": "deflate_compression_tpu_torch/csrc/copy_sources.cu",
+             "replaces": "deflate_compression_tpu/decode/tpu_inflate.py:600 "
+                         "(left to XLA there: no Pallas kernel)",
+             "launches": flat_launches["copy_sources"],
+             "launches_indexed": idx_launches["copy_sources"],
+             "max_abs_err": cs_err, **entry(cs_t), "library_ms": None,
+             "bound_with_gathers_ms": cs_t["bound_with_gathers_ms"]},
+            {"name": "decode_symbols", "route": "cuda",
              "source": "deflate_compression_tpu_torch/csrc/decode_symbols.cu",
              "replaces": "tools/probe_pallas_r5.py:35",
-             "launches": ds_launches, "max_abs_err": max_err,
+             "launches": flat_launches["decode_symbols"],
+             "max_abs_err": max_err,
              **entry(ds_t), "library_ms": None,
              "kernel_ms": ds_t["prof_ms"]},
             {"name": "lut_gather", "route": "cuda",
              "source": "deflate_compression_tpu_torch/csrc/lut_gather.cu",
              "replaces": "tools/probe_pallas_r5.py:35",
-             "launches": lg_launches, "max_abs_err": lg_err,
+             "launches": flat_launches["lut_gather"], "max_abs_err": lg_err,
              **entry(lg_t["block flags"]),
              "library_ms": lg_t["block flags"]["library_ms"],
              "probe_ms": lg_t["probe"]["ms"]}]
@@ -738,6 +999,8 @@ def large_shard_phase(dev, mbs_1mb: float) -> dict:
         decompress_indexed, index_from_shards)
     from deflate_compression_tpu_torch.format.deflate import encode_shard
     from deflate_compression_tpu_torch.models.codec import ZlibCodec
+    from deflate_compression_tpu_torch.ops import build_tables as BT
+    from deflate_compression_tpu_torch.ops import copy_sources as CS
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
     from deflate_compression_tpu_torch.ops import histogram as H
     from deflate_compression_tpu_torch.ops import lut_gather as LG
@@ -779,9 +1042,28 @@ def large_shard_phase(dev, mbs_1mb: float) -> dict:
     lg_err = same([LG.lut_gather(ftbl, fidx)], [LG.lut_gather_ref(ftbl, fidx)],
                   "lut_gather, 4 MB-shard block flags")
     n_lanes = int(pf.ln.llive.sum())
+    a_args, c_args = phase_args(flat, pf, DS.decode_symbols(*bargs).tok,
+                                nsh * S)
+    a_want = BT.build_tables_ref(*a_args)
+    bt_err = same(leaves(BT.build_tables(*a_args)), leaves(a_want),
+                  "build_tables, 4 MB-shard flat batch")
+    cs_stats = {}
+    c_want = CS.resolve_bytes_ref(*c_args, stats=cs_stats)
+    cs_err = same(leaves(CS.resolve_bytes(*c_args)), leaves(c_want),
+                  "copy_sources, 4 MB-shard flat batch")
+    # device ms per launch of both kernels at this batch, beside the bound
+    NB = pf.blk_bit.numel()
+    bt_bytes = build_tables_bytes(a_want, pf.blk_bit, flat["blk_btype"])[0]
+    cs_bytes, gather_bytes = copy_sources_bytes(nsh * S, NB, cs_stats)
+    dev_ms = {"build_tables": device_ms(lambda: BT.build_tables(*a_args),
+                                        20)[0],
+              "copy_sources": device_ms(lambda: CS.resolve_bytes(*c_args),
+                                        20)[0]}
+    bounds = {"build_tables": bound_ms(bt_bytes),
+              "copy_sources": bound_ms(cs_bytes)}
+    del c_want, a_want
 
-    _, ddt, (ds_launches, lg_launches) = verified_decode(raw, batch, valid,
-                                                         S)
+    _, ddt, launches = verified_decode(raw, batch, valid, S)
     ph, _ = phase_times(flat, nsh * S)
 
     index = index_from_shards(*zip(*sink))
@@ -801,16 +1083,23 @@ def large_shard_phase(dev, mbs_1mb: float) -> dict:
           f"CPU (words, total_bits, btype, block_bits, sub_*) for shards "
           f"(index, bytes, bits) {checked}, the two CPU and GPU encodes "
           f"{t_cpu:.2f} s; one flat decode_blocks_batch of {n_lanes} live "
-          f"lanes: decode_symbols and lut_gather == plain (max abs err "
-          f"{ds_err}, {lg_err}), launches {ds_launches} and {lg_launches}, "
+          f"lanes: build_tables, lut_gather, decode_symbols and copy_sources "
+          f"== plain (max abs err {bt_err}, {lg_err}, {ds_err}, {cs_err}), "
+          f"launches {launches}, "
           f"verified decode {len(raw) / ddt / 1e6:.3f} MB/s ({ddt:.3f} s, "
-          f"adler32 per shard OK, bytes OK); phases by CUDA events: A "
-          f"{ph[0]:.2f} ms, B {ph[1]:.2f} ms, C {ph[2]:.2f} ms; "
+          f"adler32 per shard OK, bytes OK); {show_phases(ph)}; "
+          f"device ms per launch on this batch: build_tables "
+          f"{dev_ms['build_tables']:.4f} ({NB} block slots, {bt_bytes} "
+          f"bytes, bound {bounds['build_tables']:.5f} ms), copy_sources "
+          f"{dev_ms['copy_sources']:.4f} ({cs_bytes} bytes, bound "
+          f"{bounds['copy_sources']:.5f} ms; the plain version's rounds "
+          f"gathered {gather_bytes} bytes over {cs_stats['tagged']} open "
+          f"pointers); "
           f"decompress_indexed with the encoder's index ({index.n_subs} "
           f"entries, groups of {S} bytes) {len(raw) / t_idx / 1e6:.3f} MB/s")
     torch.cuda.synchronize()
-    return {"tile_histogram": hist_launches, "decode_symbols": ds_launches,
-            "lut_gather": lg_launches}
+    return {**launches, "tile_histogram": hist_launches,
+            "phases": ph, "device_ms": dev_ms, "bound_ms": bounds}
 
 
 def png_bytes(px: np.ndarray) -> bytes:
@@ -926,11 +1215,14 @@ def surface_phase(raw: bytes, dev) -> np.ndarray:
 
 def counters() -> dict:
     """Each kernel's wrapper, whose `launches` counts its launches."""
+    from deflate_compression_tpu_torch.ops import build_tables as BT
+    from deflate_compression_tpu_torch.ops import copy_sources as CS
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
     from deflate_compression_tpu_torch.ops import histogram as H
     from deflate_compression_tpu_torch.ops import lut_gather as LG
     return {"tile_histogram": H.tile_histogram,
-            "decode_symbols": DS.decode_symbols, "lut_gather": LG.lut_gather}
+            "decode_symbols": DS.decode_symbols, "lut_gather": LG.lut_gather,
+            "build_tables": BT.build_tables, "copy_sources": CS.resolve_bytes}
 
 
 def zero_counts() -> None:
@@ -1081,8 +1373,8 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
         tdist.destroy_process_group()
     if out != blob:
         raise AssertionError("1-rank NCCL compress_distributed != phase 4")
-    if launches != {"tile_histogram": 2 * nsh, "decode_symbols": 0,
-                    "lut_gather": 0}:
+    if launches != {"tile_histogram": 2 * nsh,
+                    **{k: 0 for k in DECODE_KERNELS}}:
         raise AssertionError(f"1-rank NCCL run launched {launches}")
 
     with tempfile.TemporaryDirectory() as d:
@@ -1176,6 +1468,8 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
 # runs it) that prints each kernel's launches in the process at exit
 _COUNTING_MAIN = r"""
 import atexit, json, runpy, sys
+from deflate_compression_tpu_torch.ops import build_tables as BT
+from deflate_compression_tpu_torch.ops import copy_sources as CS
 from deflate_compression_tpu_torch.ops import decode_symbols as DS
 from deflate_compression_tpu_torch.ops import histogram as H
 from deflate_compression_tpu_torch.ops import lut_gather as LG
@@ -1185,7 +1479,10 @@ def _counts():
     print("LAUNCHES " + json.dumps({
         "tile_histogram": H.tile_histogram.launches,
         "decode_symbols": DS.decode_symbols.launches,
-        "lut_gather": LG.lut_gather.launches}), file=sys.stderr, flush=True)
+        "lut_gather": LG.lut_gather.launches,
+        "build_tables": BT.build_tables.launches,
+        "copy_sources": CS.resolve_bytes.launches}), file=sys.stderr,
+        flush=True)
 
 
 atexit.register(_counts)
@@ -1257,8 +1554,7 @@ def cli_phase(raw: bytes, blob: bytes, stats, px: np.ndarray, dev) -> dict:
         ("compress launches", counts["compress"]["tile_histogram"]
          == 2 * math.ceil(len(raw) / (1 << 20))),
         ("decompress --index launches",
-         min(counts["decompress --index"][k] for k in
-             ("decode_symbols", "lut_gather")) >= 1)]
+         min(counts["decompress --index"][k] for k in DECODE_KERNELS) >= 1)]
     bad = [name for name, ok in checks if not ok]
     if bad:
         raise AssertionError(f"CLI checks failed: {bad}; launches {counts}")

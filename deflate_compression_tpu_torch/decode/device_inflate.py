@@ -10,7 +10,8 @@ from the encoder or from one host pass over a foreign stream
     the 19 code-length lengths, the RLE loop over code-length symbols, the
     Kraft checks, and per block the phase-B tables (ops/decode_symbols.py
     SymbolTables: 2^11-entry LUTs plus the canonical tables of codes up to
-    15 bits). Plain PyTorch.
+    15 bits). This is the CUDA kernel `build_tables` on the card, its
+    plain version on the CPU (ops/build_tables.py).
   Phase B (`phase_b`) — one lane per sub-entry decodes tokens from its start
     bit until its output cursor reaches the next entry. This is the CUDA
     kernel `decode_symbols` (shared-memory LUT gathers) on the card, its
@@ -20,7 +21,9 @@ from the encoder or from one host pass over a foreign stream
   Phase C (`phase_c`) — output bytes: stored-block slice copies, each
     position's covering-token distance, the same-distance run collapse and
     tagged-value pointer doubling (full rounds; the JAX decoder's
-    scatter-free compact tail only dodges TPU scatters). Plain PyTorch.
+    scatter-free compact tail only dodges TPU scatters). The bytes are the
+    CUDA kernels of `copy_sources` on the card, their plain version on the
+    CPU (ops/copy_sources.py); the verdict is a few tensor operations.
 
 Strictness is the JAX decoder's: invalid prefixes, litlen symbols >= 286,
 dist symbols >= 30, HLIT > 286 / HDIST > 30, oversubscribed trees, a repeat
@@ -33,33 +36,16 @@ from __future__ import annotations
 
 import typing
 
-import numpy as np
 import torch
 
-from ..core.bits import reverse_bits
-from ..core.huffman import canonical_codes
 from ..format import constants as C
+from ..ops import build_tables as BT
+from ..ops import copy_sources as CS
 from ..ops import decode_symbols as DS
 from ..ops.lut_gather import lut_gather
 
-_RLE_W = C.NUM_LITLEN + C.NUM_DIST            # 316 code lengths at most
-_RLE_STEPS = _RLE_W + 4                       # the JAX loop's step bound
-_RLE_CHECK = 8                                # steps between exit checks
-_WSTO = 1 << 16                               # a stored block's byte cap
-
-_FIXED_LL_LEN_FULL = np.zeros(DS.N_LL, np.int64)
-_FIXED_LL_LEN_FULL[:len(C.FIXED_LITLEN_LENGTHS)] = C.FIXED_LITLEN_LENGTHS
-_FIXED_D_LEN_FULL = np.full(DS.N_D, 5, np.int64)
-_FIXED_D_LEN_FULL[:len(C.FIXED_DIST_LENGTHS)] = C.FIXED_DIST_LENGTHS
-
-
-class PhaseA(typing.NamedTuple):
-    tables: DS.SymbolTables
-    hdr_end: torch.Tensor        # i64[NB] bit after each block's header
-    bbad: torch.Tensor           # bool[NB] block flagged bad
-    blive: torch.Tensor          # bool[NB]
-    huff: torch.Tensor           # bool[NB] fixed or dynamic
-    is_sto: torch.Tensor         # bool[NB]
+PhaseA = BT.PhaseA
+_tables = BT._tables
 
 
 class Lanes(typing.NamedTuple):
@@ -98,166 +84,13 @@ def _words_i32(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
-def _peek32(w: torch.Tensor, bit_pos: torch.Tensor) -> torch.Tensor:
-    """32-bit LSB-first window; word indices clip to the array (the JAX
-    decoder's _peek32)."""
-    W = w.shape[0]
-    wi = (bit_pos >> 5).clamp(0, W - 1)
-    sh = bit_pos & 31
-    lo = w[wi]
-    hi = w[(wi + 1).clamp(max=W - 1)]
-    keep = (torch.ones_like(sh) << sh) - 1
-    return (lo >> sh) | ((hi & keep) << (32 - sh))
-
-
-def _canon(lengths: torch.Tensor, max_bits: int):
-    """Codes per length (NB, max_bits+1), the Kraft oversubscription flag,
-    and each symbol's bit-reversed canonical code (-1 where absent)."""
-    lvl = torch.arange(max_bits + 1, device=lengths.device)
-    count = ((lengths.unsqueeze(2) == lvl) & (lengths.unsqueeze(2) > 0)).sum(1)
-    kraft = (count[:, 1:] << (max_bits - lvl[1:])).sum(1)
-    over = kraft > (1 << max_bits)
-    codes = canonical_codes(lengths, max_bits)
-    rcode = reverse_bits(codes, lengths, max_bits)
-    return count, over, torch.where(lengths > 0, rcode, -1)
-
-
-def _lut(lengths, rcode, pay, lut_bits: int, max_bits: int) -> torch.Tensor:
-    """Primary LUT (NB, 2^lut_bits): the sum of the payloads of the codes of
-    at most lut_bits bits that prefix each index (the JAX decoder's dense
-    compare, tabulated: exactly one code for a prefix-free tree), and
-    LONG_CODE where only longer codes share the prefix."""
-    NB = lengths.shape[0]
-    dev = lengths.device
-    size = 1 << lut_bits
-    p = torch.arange(size, device=dev)
-    brow = torch.arange(NB, device=dev).unsqueeze(1)
-    lut = torch.zeros((NB, size), dtype=torch.int64, device=dev)
-    for ln in range(1, min(lut_bits, max_bits) + 1):
-        sel = lengths == ln
-        slots = 1 << ln
-        idx = torch.where(sel, brow * slots + rcode, NB * slots)
-        t = torch.zeros(NB * slots + 1, dtype=torch.int64, device=dev)
-        t.index_add_(0, idx.reshape(-1), torch.where(sel, pay, 0).reshape(-1))
-        lut += t[:-1].view(NB, slots)[:, p & (slots - 1)]
-    if max_bits > lut_bits:
-        sel = lengths > lut_bits
-        idx = torch.where(sel, brow * size + (rcode & (size - 1)), NB * size)
-        n = torch.zeros(NB * size + 1, dtype=torch.int64, device=dev)
-        n.index_add_(0, idx.reshape(-1), sel.long().reshape(-1))
-        lut = torch.where((n[:-1].view(NB, size) > 0) & (lut == 0),
-                          DS.LONG_CODE, lut)
-    return lut.to(torch.int32)
-
-
-def _tables(lengths, pay_static, shift):
-    """LUT, codes per length, canonical symbol order, and the Kraft flag
-    of one alphabet for every block."""
-    count, over, rcode = _canon(lengths, DS.MAX_BITS)
-    n = lengths.shape[1]
-    pay = torch.where(lengths > 0,
-                      torch.as_tensor(pay_static, device=lengths.device)
-                      .long() | (lengths << shift), 0)
-    lut = _lut(lengths, rcode, pay, DS.LUT_BITS, DS.MAX_BITS)
-    s = torch.arange(n, device=lengths.device)
-    key = torch.where(lengths > 0, lengths * 512 + s,
-                      (DS.MAX_BITS + 1) * 512 + s)
-    order = torch.argsort(key, dim=1).to(torch.int32)
-    return lut, count.to(torch.int32).contiguous(), order.contiguous(), over
-
-
 # ------------------------------------------------------------------ phase A
 
 def phase_a(w: torch.Tensor, blk_bit, blk_btype, n_blocks) -> PhaseA:
-    """Block headers and the phase-B tables (tpu_inflate.py:352-454)."""
-    dev = w.device
-    NB = blk_bit.shape[0]
-    bit_budget = 32 * w.shape[0]
-    blanes = torch.arange(NB, device=dev)
-    blive = (blanes < n_blocks) & (blk_btype >= 0)
-    is_dyn = blive & (blk_btype == C.BTYPE_DYNAMIC)
-    is_fix = blive & (blk_btype == C.BTYPE_FIXED)
-    is_sto = blive & (blk_btype == C.BTYPE_STORED)
-    bbad = blive & (blk_btype == 3)                      # reserved BTYPE
-    huff = is_dyn | is_fix
-
-    bp = blk_bit + 3                                     # skip BFINAL/BTYPE
-    hw = _peek32(w, bp)
-    hlit = torch.where(is_dyn, (hw & 31) + 257, 257)
-    hdist = torch.where(is_dyn, ((hw >> 5) & 31) + 1, 1)
-    hclen = torch.where(is_dyn, ((hw >> 10) & 15) + 4, 4)
-    bbad = bbad | (is_dyn & ((hlit > 286) | (hdist > 30)))
-    bp = torch.where(is_dyn, bp + 14, bp)
-
-    # the j-th transmitted clen length sits at bp + 3j
-    j = torch.arange(C.NUM_CLEN, device=dev)
-    v = _peek32(w, bp.unsqueeze(1) + 3 * j) & 7
-    use = is_dyn.unsqueeze(1) & (j < hclen.unsqueeze(1))
-    clen_lens = torch.zeros((NB, C.NUM_CLEN), dtype=torch.int64, device=dev)
-    clen_lens[:, torch.as_tensor(C.CLEN_ORDER, device=dev)] = \
-        torch.where(use, v, 0)
-    bp = torch.where(is_dyn, bp + 3 * hclen, bp)
-
-    _, cl_over, cl_rc = _canon(clen_lens, C.MAX_CLEN_BITS)
-    bbad = bbad | (is_dyn & cl_over)
-    cl_pay = torch.where(clen_lens > 0, j | (clen_lens << 5), 0)
-    cl_lut = _lut(clen_lens, cl_rc, cl_pay, C.MAX_CLEN_BITS,
-                  C.MAX_CLEN_BITS).long()
-
-    # RLE loop over code-length symbols (tpu_inflate.py rle_body): masked
-    # steps, so running past a block's end changes nothing
-    total = hlit + hdist
-    t316 = torch.arange(_RLE_W, device=dev)
-    i = torch.zeros(NB, dtype=torch.int64, device=dev)
-    prev = torch.full((NB,), -1, dtype=torch.int64, device=dev)
-    lens = torch.zeros((NB, _RLE_W), dtype=torch.int64, device=dev)
-    bad = bbad
-    for step in range(_RLE_STEPS):
-        act = is_dyn & (i < total) & ~bad
-        if step % _RLE_CHECK == 0 and not bool(act.any()):
-            break
-        lo = _peek32(w, bp)
-        e = cl_lut.gather(1, (lo & 127).unsqueeze(1)).squeeze(1)
-        cl = e >> 5
-        bad = bad | (act & (cl == 0))
-        sym = e & 0x1F
-        is_lit = sym < 16
-        is16 = sym == 16
-        eb = torch.where(is16, 2, torch.where(sym == 17, 3,
-                                              torch.where(sym == 18, 7, 0)))
-        ev = (lo >> cl) & ((torch.ones_like(eb) << eb) - 1)
-        rep = torch.where(is_lit, 1, torch.where(sym <= 17, 3 + ev, 11 + ev))
-        fill = torch.where(is_lit, sym, torch.where(is16, prev, 0))
-        bad = bad | (act & is16 & (prev < 0))
-        cover = ((t316 >= i.unsqueeze(1)) & (t316 < (i + rep).unsqueeze(1))
-                 & act.unsqueeze(1))
-        lens = torch.where(cover, fill.unsqueeze(1), lens)
-        i = torch.where(act, i + rep, i)
-        bad = bad | (act & (i > total))
-        prev = torch.where(act, fill, prev)
-        bp = torch.where(act, bp + cl + eb, bp)
-        bad = bad | (act & (bp > bit_budget))
-    bbad = bad
-
-    tl = torch.arange(DS.N_LL, device=dev)
-    ll_dyn = torch.cat([lens[:, :C.NUM_LITLEN],
-                        lens.new_zeros((NB, DS.N_LL - C.NUM_LITLEN))], 1)
-    ll_lens = torch.where(tl < hlit.unsqueeze(1), ll_dyn, 0)
-    td = torch.arange(DS.N_D, device=dev)
-    d_lens = lens.gather(1, (hlit.unsqueeze(1) + td).clamp(0, _RLE_W - 1))
-    d_lens = torch.where(td < hdist.unsqueeze(1), d_lens, 0)
-    ll_lens = torch.where(is_fix.unsqueeze(1),
-                          torch.as_tensor(_FIXED_LL_LEN_FULL, device=dev),
-                          ll_lens)
-    d_lens = torch.where(is_fix.unsqueeze(1),
-                         torch.as_tensor(_FIXED_D_LEN_FULL, device=dev),
-                         d_lens)
-
-    ll_lut, ll_cnt, ll_sym, ll_over = _tables(ll_lens, DS.LL_PAY, DS.LL_SHIFT)
-    d_lut, d_cnt, d_sym, d_over = _tables(d_lens, DS.D_PAY, DS.D_SHIFT)
-    bbad = bbad | (huff & (ll_over | d_over))
-    tables = DS.SymbolTables(ll_lut, d_lut, ll_cnt, d_cnt, ll_sym, d_sym)
-    return PhaseA(tables, bp, bbad, blive, huff, is_sto)
+    """Block headers and the phase-B tables (tpu_inflate.py:352-454): the
+    build_tables kernel on a CUDA tensor, its plain version on a CPU
+    tensor."""
+    return BT.build_tables(w, blk_bit, blk_btype, n_blocks)
 
 
 # ------------------------------------------------------------------ phase B
@@ -315,88 +148,19 @@ def phase_b(p: Plan, out_size: int, max_dist) -> DS.SymbolResult:
 
 def phase_c(p: Plan, b: DS.SymbolResult, out_size: int, prefix=None,
             prefix_len=None) -> dict:
-    """Output bytes from the tokens (tpu_inflate.py:600-841), and the
-    decode's verdict: dict(out=u8[out_size], ok, bad_lanes)."""
-    w, tok, a = p.w, b.tok, p.a
-    blk_bit, blk_out, blk_end = p.blk_bit, p.blk_out, p.blk_end
-    dev = tok.device
-    S = int(out_size)
-    NB = blk_bit.shape[0]
-    j = torch.arange(S, device=dev)
-    t = tok[:S].long()
-    t_valid = ((t >> 25) & 1) == 1
-    t_match = ((t >> 26) & 1) == 1
-
-    if prefix is not None:
-        plen = _i64(prefix_len, dev)
-        pref = torch.zeros(S, dtype=torch.int64, device=dev)
-        pw = min(prefix.shape[0], S)
-        pref[:pw] = prefix[:pw].to(dev).long()
-        lit_val = torch.where(j < plen, pref, 0)
-    else:
-        plen = torch.zeros((), dtype=torch.int64, device=dev)
-        lit_val = torch.zeros(S, dtype=torch.int64, device=dev)
-    lit_val = torch.where(t_valid & ~t_match, t & 0x1FF, lit_val)
-
-    # live-block coverage and the covering block's stored flag: a packed
-    # word scattered at each block start and forward-filled by cummax
-    blanes = torch.arange(NB, device=dev)
-    ok_start = a.blive & (blk_out >= 0) & (blk_out < S)
-    start = torch.where(ok_start, blk_out, S)
-    cend = torch.zeros(S + 1, dtype=torch.int64, device=dev).scatter_reduce(
-        0, start, torch.where(a.blive, blk_end, 0), "amax")[:S]
-    pos_live = j < torch.cummax(cend, 0).values
-    markv = ((blanes + 1) << 1) | a.is_sto.long()
-    pc = torch.zeros(S + 1, dtype=torch.int64, device=dev).scatter_reduce(
-        0, start, torch.where(a.blive, markv, 0), "amax")[:S]
-    pc = torch.cummax(pc, 0).values
-    pos_sto = ((pc & 1) == 1) & (j >= plen) & ((pc >> 1) > 0)
-
-    # stored payloads: one contiguous slice copy per live stored block, in
-    # block order (later blocks win, as in the JAX fori_loop)
-    sto = torch.nonzero(a.is_sto).squeeze(1)
-    if sto.numel():
-        CW = w.shape[0]
-        shifts = torch.arange(0, 32, 8, device=dev)
-        cbytes = torch.cat([((w.unsqueeze(1) >> shifts) & 0xFF).reshape(-1),
-                            w.new_zeros(_WSTO)])
-        lv = torch.cat([lit_val, lit_val.new_zeros(_WSTO)])
-        src = (((blk_bit[sto] + 3 + 7) >> 3) + 4).clamp(0, 4 * CW)
-        dst = blk_out[sto].clamp(0, S)
-        n = (blk_end[sto] - blk_out[sto]).clamp(0, _WSTO)
-        for s0, d0, k in zip(src.tolist(), dst.tolist(), n.tolist()):
-            lv[d0:d0 + k] = cbytes[s0:s0 + k]
-        lit_val = lv[:S]
-
-    # covering token per position; same-distance runs collapse to one step
-    s_j = torch.cummax(torch.where(t_valid, j, -1), 0).values
-    t_cov = t[s_j.clamp(min=0)]
-    d_j = torch.where((s_j >= 0) & (((t_cov >> 26) & 1) == 1),
-                      (t_cov >> 9) & 0xFFFF, 0)
-    mpos = (d_j > 0) & ~pos_sto & (j >= plen) & pos_live
-    rd = torch.where(mpos, d_j, 0)
-    prev_rd = torch.cat([rd.new_full((1,), -1), rd[:-1]])
-    r = torch.cummax(torch.where(rd != prev_rd, j, -1), 0).values
-    base = r - rd
-    g = base + torch.where(mpos, (j - base) % rd.clamp(min=1), 0)
-    bad_dist = (mpos & (g < 0)).any()
-
-    # tagged-value pointer doubling: v is a resolved byte or TAG | source
-    tag_bit = max(24, int(S - 1).bit_length())
-    TAG = 1 << tag_bit
-    v = torch.where(mpos & (g >= 0), TAG | g.clamp(0, max(S - 1, 0)), lit_val)
-    max_rounds = int(np.ceil(np.log2(max(S, 2)))) + 2
-    tag = (v & TAG) != 0
-    for _ in range(max_rounds):
-        if not bool(tag.any()):
-            break
-        v = torch.where(tag, v[(v & (TAG - 1)).clamp(max=max(S - 1, 0))], v)
-        tag = (v & TAG) != 0
-
+    """Output bytes from the tokens (tpu_inflate.py:600-841), resolved by
+    the copy_sources kernels on a CUDA tensor and their plain version on a
+    CPU tensor, and the decode's verdict: dict(out=u8[out_size], ok,
+    bad_lanes)."""
+    a = p.a
+    v, bad_dist, unconverged = CS.resolve_bytes(
+        p.w, b.tok, p.blk_bit, p.blk_out, p.blk_end, a.blive, a.is_sto,
+        out_size, prefix, prefix_len)
+    j = torch.arange(int(out_size), device=v.device)
     bad_lanes = p.ln.llive & (b.bad | ~b.done)
-    out = torch.where(j < p.valid_out, v & 0xFF, 0).to(torch.uint8)
+    out = torch.where(j < p.valid_out, v, 0)
     ok = (~bad_lanes.any() & ~(a.bbad & a.blive).any() & ~bad_dist
-          & ~tag.any())
+          & ~unconverged)
     return {"out": out, "ok": ok, "bad_lanes": bad_lanes}
 
 

@@ -79,17 +79,25 @@ def device_ms(fn, n: int):
 
 def profiled_ms(fn, n: int) -> dict:
     """Device milliseconds per call by kernel name, summed over a
-    torch.profiler window of n calls after a warm-up."""
+    torch.profiler window of n calls after a warm-up (empty only if three
+    windows in a row recorded no device event)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     by = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by[e.name] = by.get(e.name, 0.0) + e.self_device_time_total / 1e3 / n
+    # a short window now and then comes back with no device event at all:
+    # take it again, up to three times, over twice the calls each time
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by[e.name] = (by.get(e.name, 0.0)
+                              + e.self_device_time_total / 1e3 / n)
+        if by:
+            break
+        n *= 2
     return by

@@ -434,3 +434,321 @@ def test_decompress_indexed_cuda_long_codes(cuda):
                                   device="cuda")
     assert out == raw
     assert DS.decode_symbols.launches > before
+
+
+# ------------------------------------------- build_tables and copy_sources
+
+
+def first_symbol_16_words() -> np.ndarray:
+    """A dynamic block header (u32 words) whose code-length code holds
+    symbols 0 and 16 at one bit each and whose first code-length symbol is
+    16: a repeat with no previous length."""
+    bits, n = 0, 0
+    for value, nbits in ((1, 1), (2, 2), (0, 5), (0, 5), (0, 4),
+                         (1, 3), (0, 3), (0, 3), (1, 3),   # 16, 17, 18, 0
+                         (1, 1), (2, 2),                   # 16, repeat 5
+                         (0, 1), (0, 1)):
+        bits |= value << n
+        n += nbits
+    body = bits.to_bytes(8, "little")
+    return np.frombuffer(body, "<u4").copy()
+
+
+def long_run_case(bad: bool, tiles: int = 7):
+    """resolve_bytes arguments (CPU tensors) of hand-made tokens: literal
+    65 at 0, then matches of length 258 and distance 1 to the end, one run
+    over `tiles` tiles of the kernel; with `bad` the first token is a match
+    that reaches before the output start. Returns (args, S)."""
+    from deflate_compression_tpu_torch.ops import copy_sources as CS
+    S = tiles * CS.TILE + 17
+    tok = np.zeros(S + 1, np.int32)
+    tok[0] = (3 | (5 << 9) | (3 << 25)) if bad else (65 | (1 << 25))
+    tok[(3 if bad else 1):S:258] = 258 | (1 << 9) | (3 << 25)
+    t = torch.tensor
+    return (torch.zeros(4, dtype=torch.int64), torch.from_numpy(tok),
+            t([0]), t([0]), t([S]), t([True]), t([False])), S
+
+from deflate_compression_tpu_torch.ops import build_tables as BT  # noqa: E402
+from deflate_compression_tpu_torch.ops import copy_sources as CS  # noqa: E402
+from deflate_compression_tpu_torch.ops import cuda_build  # noqa: E402
+
+
+def _same_tables(w, blk_bit, blk_btype, n_blocks):
+    """build_tables on the card equals its plain version in every field of
+    every block slot, and counts one launch."""
+    before = BT.build_tables.launches
+    got = BT.build_tables(w, blk_bit, blk_btype, n_blocks)
+    torch.cuda.synchronize()
+    assert BT.build_tables.launches == before + 1
+    want = BT.build_tables_ref(w, blk_bit, blk_btype, n_blocks)
+    for k, g, x in zip(want.tables._fields, got.tables, want.tables):
+        assert g.dtype == x.dtype and torch.equal(g, x), k
+    for k in ("hdr_end", "bbad", "blive", "huff", "is_sto"):
+        g, x = getattr(got, k), getattr(want, k)
+        assert g.dtype == x.dtype and torch.equal(g, x), k
+    return got
+
+
+def _bytes_args(p, tok):
+    return (p.w, tok, p.blk_bit, p.blk_out, p.blk_end, p.a.blive, p.a.is_sto)
+
+
+def _same_bytes(args, S, prefix=None, plen=None):
+    """resolve_bytes on the card equals its plain version: the bytes,
+    bad_dist and unconverged; one launch."""
+    before = CS.resolve_bytes.launches
+    got = CS.resolve_bytes(*args, S, prefix, plen)
+    torch.cuda.synchronize()
+    assert CS.resolve_bytes.launches == before + 1
+    want = CS.resolve_bytes_ref(*args, S, prefix, plen)
+    assert got[0].dtype == torch.uint8 and got[0].shape == (S,)
+    diff = torch.nonzero(got[0] != want[0]).flatten()
+    assert diff.numel() == 0, (diff[:8].tolist(), diff.numel())
+    assert bool(got[1]) == bool(want[1]) and bool(got[2]) == bool(want[2])
+    return got
+
+
+def _flat_plan_cuda(cuda, mutate=0, size=1 << 18):
+    b, valid = _batch(size)
+    if mutate:
+        rng = np.random.default_rng(mutate)
+        w = b["words"].clone()
+        for _ in range(mutate):
+            s = int(rng.integers(0, 3))
+            w[s, int(rng.integers(0, 300))] ^= 1 << int(rng.integers(0, 31))
+        b["words"] = w
+    flat = DI.flat_batch(*(b[k].to(cuda) for k in BATCH_KEYS), valid, size)
+    return flat, len(valid) * size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutate", [0, 5, 40])
+def test_build_tables_kernel_flat_batch(cuda, mutate):
+    """The encoder's own index (dynamic and stored blocks, dead slots),
+    clean and with seeded bit flips in the first words of each shard,
+    where the block headers lie."""
+    flat, _ = _flat_plan_cuda(cuda, mutate)
+    a = _same_tables(DI._words(flat["comp_words"]), flat["blk_bit"],
+                     flat["blk_btype"],
+                     torch.tensor(flat["n_blocks"], device=cuda))
+    if not mutate:
+        assert not bool(a.bbad.any()) and bool(a.is_sto.any())
+        assert bool(a.huff.any()) and not bool(a.blive.all())
+
+
+def _foreign_index(cuda, level=9, strategy=zlib.Z_DEFAULT_STRATEGY):
+    rng = np.random.default_rng(9)
+    alphabet = np.frombuffer(b"abcdefgh" * 4 + b"\x00" * 200, np.uint8)
+    raw = rng.choice(alphabet, 300_000).tobytes()
+    co = zlib.compressobj(level, zlib.DEFLATED, -15, 9, strategy)
+    body = co.compress(raw) + co.flush()
+    idx = tidx.build_index(body, prefer_native=False)
+    words = np.frombuffer(body + bytes(-len(body) % 4 + 4), np.int32).copy()
+    return raw, idx, words
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["zlib9", "fixed", "stored"])
+@pytest.mark.parametrize("mutate", [0, 30])
+def test_build_tables_kernel_foreign_streams(cuda, kind, mutate):
+    """zlib's own streams: level 9 (codes up to 15 bits, LONG_CODE
+    entries), Z_FIXED and level 0 (stored); clean and with seeded bit
+    flips at block headers."""
+    _, idx, words = _foreign_index(
+        cuda, 0 if kind == "stored" else 9,
+        zlib.Z_FIXED if kind == "fixed" else zlib.Z_DEFAULT_STRATEGY)
+    rng = np.random.default_rng(mutate)
+    for _ in range(mutate):
+        bit = int(idx.bit_base[rng.integers(0, idx.n_blocks)]) + int(
+            rng.integers(0, 600))
+        if (bit >> 5) < len(words):
+            words[bit >> 5] ^= np.int32(1 << (bit & 31) if (bit & 31) < 31
+                                        else -2**31)
+    w = DI._words(torch.from_numpy(words).to(cuda))
+    a = _same_tables(w, torch.from_numpy(idx.bit_base).to(cuda),
+                     torch.from_numpy(idx.btype.astype(np.int64)).to(cuda),
+                     idx.n_blocks)
+    if kind == "zlib9" and not mutate:
+        assert bool((a.tables.ll_lut == DS.LONG_CODE).any())
+        assert not bool(a.bbad.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_build_tables_kernel_garbage(cuda, seed):
+    """Random words parsed as headers at random bit offsets (some before,
+    at and past the end of the words), every BTYPE, dead slots: the kernel
+    equals the plain version on blocks that go bad in every way."""
+    rng = np.random.default_rng(seed)
+    CW, NB = 700, 900
+    w = torch.from_numpy(rng.integers(0, 2**32, CW, dtype=np.uint64)
+                         .astype(np.int64)).to(cuda)
+    bit = rng.integers(0, 32 * CW, NB)
+    bit[:40] = rng.integers(32 * CW - 200, 32 * CW + 5000, 40)
+    bit[40:50] = rng.integers(-5000, 0, 10)
+    bt = rng.choice([-1, 0, 1, 2, 2, 2, 2, 3], NB)
+    a = _same_tables(w, torch.from_numpy(bit).to(cuda),
+                     torch.from_numpy(bt).to(cuda),
+                     torch.tensor(NB - 50, device=cuda))
+    assert bool(a.bbad.any()) and bool((~a.bbad & a.huff).any())
+
+
+@pytest.mark.cuda
+def test_build_tables_kernel_repeat_without_previous(cuda):
+    """A dynamic header whose first code-length symbol is 16: bad, and the
+    tables of absent lengths."""
+    w = torch.from_numpy(first_symbol_16_words().astype(np.int64)).to(cuda)
+    a = _same_tables(w, torch.zeros(1, dtype=torch.int64, device=cuda),
+                     torch.full((1,), 2, dtype=torch.int64, device=cuda), 1)
+    assert bool(a.bbad[0])
+
+
+def _plan_and_tokens(flat, S):
+    p = DI.plan(**flat)
+    return p, DI.phase_b(p, S, 32768).tok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutate", [0, 3, 40])
+def test_resolve_bytes_kernel_flat_batch(cuda, mutate):
+    flat, S = _flat_plan_cuda(cuda, mutate)
+    p, tok = _plan_and_tokens(flat, S)
+    _same_bytes(_bytes_args(p, tok), S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["zlib9", "fixed", "stored"])
+def test_resolve_bytes_kernel_foreign_streams_with_prefix(cuda, kind):
+    """zlib's streams through decompress_indexed (groups of whole blocks,
+    each after the first with a 32 KB prefix) equal the input; then one
+    decode with a prefix of random bytes, the kernel against the plain
+    version at several prefix lengths."""
+    raw, idx, words = _foreign_index(
+        cuda, 0 if kind == "stored" else 9,
+        zlib.Z_FIXED if kind == "fixed" else zlib.Z_DEFAULT_STRATEGY)
+    body = words.tobytes()
+    a0, c0 = BT.build_tables.launches, CS.resolve_bytes.launches
+    assert tidx.decompress_indexed(
+        body, idx, shard_out=1 << 16, expected_adler=zlib.adler32(raw),
+        device="cuda") == raw
+    assert BT.build_tables.launches > a0
+    assert CS.resolve_bytes.launches > c0
+    # one group with a prefix, the kernel against the plain version
+    S = 40_000 + 32768
+    rng = np.random.default_rng(1)
+    prefix = torch.from_numpy(rng.integers(0, 256, 32768, dtype=np.uint8))
+    p = DI.plan(torch.from_numpy(words).to(cuda), idx.bit_base,
+                idx.out_start + 32768, idx.btype.astype(np.int64),
+                idx.n_blocks, idx.sub_bit, idx.sub_out + 32768,
+                idx.sub_blk.astype(np.int64), idx.n_subs, S)
+    tok = DI.phase_b(p, S, 32768).tok
+    for plen in (32768, torch.tensor(20_000, device=cuda), 0):
+        _same_bytes(_bytes_args(p, tok), S, prefix.to(cuda), plen)
+    _same_bytes(_bytes_args(p, tok), S, prefix[:100].to(cuda), 32768)
+
+
+@pytest.mark.cuda
+def test_resolve_bytes_kernel_long_run_and_bad_dist(cuda):
+    """A zero run over many tiles (one run, one step), and a stream whose
+    first match reaches before the output start."""
+    for bad in (False, True):
+        args, S = long_run_case(bad)
+        got = _same_bytes(tuple(x.to(cuda) for x in args), S)
+        assert bool(got[1]) == bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
+def test_resolve_bytes_kernel_random_tokens_and_blocks(cuda, seed):
+    """Random token arrays (literals, matches of any distance, gaps of any
+    length) over random block tables (overlapping, unsorted, dead, stored
+    blocks that overlap each other): exact equality, bad_dist included."""
+    rng = np.random.default_rng(seed)
+    S = int(rng.integers(1, 300_000)) if seed else 5000
+    NB = int(rng.integers(1, 60))
+    CW = 4000
+    kind = rng.random(S + 1)
+    gap = rng.random() * 0.9
+    lit = rng.integers(0, 256, S + 1)
+    dist = np.where(rng.random(S + 1) < 0.5, rng.integers(1, 40, S + 1),
+                    rng.integers(1, 40_000, S + 1))
+    tok = np.where(kind < gap, 0, np.where(
+        kind < gap + (1 - gap) / 2, lit | (1 << 25),
+        rng.integers(3, 259, S + 1) | (dist << 9) | (3 << 25)))
+    if seed % 2:
+        tok[S // 3:2 * S // 3] = 0            # a long region with no token
+    out = rng.integers(-100, S + 100, NB)
+    if seed % 3:
+        out = np.sort(out)
+    end = out + rng.integers(-10, 70_000 if seed < 4 else S, NB)
+    t = torch.from_numpy
+    args = (t(rng.integers(0, 2**32, CW, dtype=np.uint64).astype(np.int64)),
+            t(tok.astype(np.int32)), t(rng.integers(0, 32 * CW + 64, NB)),
+            t(out), t(end), t(rng.random(NB) < 0.8))
+    is_sto = args[-1] & t(rng.random(NB) < 0.4)
+    args = tuple(x.to(cuda) for x in (*args, is_sto))
+    _same_bytes(args, S)
+    prefix = t(rng.integers(0, 256, 32768, dtype=np.uint8)).to(cuda)
+    _same_bytes(args, S, prefix, int(rng.integers(0, min(S, 32768) + 1)))
+
+
+@pytest.mark.cuda
+def test_phase_wrappers_do_not_synchronize(cuda):
+    """build_tables and resolve_bytes launch with no host synchronisation
+    when their scalars are ints or already on the card."""
+    flat, S = _flat_plan_cuda(cuda)
+    p, tok = _plan_and_tokens(flat, S)
+    w = p.w
+    nb = torch.tensor(flat["n_blocks"], device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = BT.build_tables(w, p.blk_bit, flat["blk_btype"], nb)
+        r = CS.resolve_bytes(*_bytes_args(p, tok), S)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for g, x in zip(a.tables, p.a.tables):
+        assert torch.equal(g, x)
+    assert torch.equal(r[0], CS.resolve_bytes_ref(*_bytes_args(p, tok), S)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", ["build_tables", "copy_sources"])
+def test_phase_kernels_raise_when_the_library_cannot_load(cuda, mod,
+                                                          monkeypatch):
+    """No fallback: on CUDA tensors a wrapper whose library does not build
+    raises, and never takes the plain version."""
+    flat, S = _flat_plan_cuda(cuda, size=1 << 16)
+    p, tok = _plan_and_tokens(flat, S)
+    m = BT if mod == "build_tables" else CS
+
+    def boom(*a, **k):
+        raise RuntimeError("nvcc failed (test)")
+    m._bind.cache_clear()
+    monkeypatch.setattr(cuda_build, "load", boom)
+    monkeypatch.setattr(m, mod + "_ref" if mod == "build_tables"
+                        else "resolve_bytes_ref", None)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            if m is BT:
+                BT.build_tables(p.w, p.blk_bit, flat["blk_btype"],
+                                flat["n_blocks"])
+            else:
+                CS.resolve_bytes(*_bytes_args(p, tok), S)
+    finally:
+        m._bind.cache_clear()
+
+
+@pytest.mark.cuda
+def test_decode_launches_all_four_decode_kernels(cuda):
+    """decode_blocks_batch on CUDA tensors launches build_tables,
+    lut_gather, decode_symbols and copy_sources once each."""
+    b, valid = _batch()
+    fns = (BT.build_tables, LG.lut_gather, DS.decode_symbols,
+           CS.resolve_bytes)
+    before = [f.launches for f in fns]
+    g = DI.decode_blocks_batch(*(b[k].to(cuda) for k in BATCH_KEYS), valid,
+                               1 << 18)
+    assert bool(g["ok"])
+    assert [f.launches for f in fns] == [n + 1 for n in before]
