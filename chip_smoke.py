@@ -4,7 +4,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints one line and ends with torch.cuda.synchronize()):
   1. device: the card's name and power limit;
-  2. build: start nvcc on every CUDA source of csrc/ at once, wait for all;
+  2. build: start nvcc on every CUDA source of csrc/ at once (seven),
+     wait for all;
   3. tile_histogram against its plain PyTorch version, exact equality, on
      int32 and int64 symbols, rows 1-128, C = 30, 286 and MAX_CLASSES, and
      a skewed input (every row one symbol 32768 times); both times at the
@@ -15,7 +16,9 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      torch.bincount of the flattened row-offset index (context: it is not
      the same function); the wrapper once under sync debug mode "error";
   4. the encode slice: ZlibCodec.compress of an ~8.5 MB corpus on the card,
-     checked by zlib.decompress, with the kernel's launch count;
+     checked by zlib.decompress, with the launch counts of its three
+     kernels (find_matches, lz_parse and tile_histogram: 1, 1 and 2 per
+     shard);
   5. encode_shard on the card against the port on the CPU, bit for bit, for
      the first and the last shard, and the whole stream of phase 4;
   6. build: decode_symbols.cu, lut_gather.cu, build_tables.cu and
@@ -45,7 +48,7 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      plain versions in each mutated decode), decompress_indexed raising,
      the declared-window violation, clean shards equal;
  10. large shards: a 32 MB corpus in 4 MB shards through ZlibCodec on the
-     card (zlib.decompress, tile_histogram launches, MB/s beside phase
+     card (zlib.decompress, the encode's launches, MB/s beside phase
      4's, peak device memory), the first and last shard GPU == CPU,
      compress_stream's index into one flat decode_blocks_batch (adler32
      per shard, bytes, the four decode kernels once each and equal to
@@ -56,7 +59,8 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      MB corpus on the card and decompress it on the host (zlib / gzip
      oracles), the self-check on 2 MB, verify_stream of its zlib and gzip
      blobs, png_decode of a PNG built here, the per-symbol trace of 256 KB
-     on the card against the CPU;
+     on the card (one shard: find_matches and lz_parse once each) against
+     the CPU;
  12. distributed and resumable encode of phase 4's corpus in 1 MB shards:
      compress_distributed in a 1-rank NCCL group (phase 4's bytes,
      tile_histogram 18 times), in 2 gloo ranks that both encode on cuda:0
@@ -66,7 +70,14 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
  13. the command line: each subcommand as `python3 -m
      deflate_compression_tpu_torch` in a subprocess (compress, decompress
      --index and trace on the card, counting launches), checked against the
-     zlib oracle and the bytes of phases 4 and 11.
+     zlib oracle and the bytes of phases 4 and 11;
+ 14. the encoder's LZ77 kernels: find_matches and lz_parse against their
+     plain versions, exactly, on phase 4's first and last shards, one 4 MB
+     shard, the trace's input and the edge cases of `corpus.lz_case`;
+     tokenize once under sync debug mode "error"; both kernels' and plain
+     versions' times as in phase 3 at 1 MB and 4 MB shards, beside the
+     bound (bytes over 3.35 TB/s or integer operations over the int32
+     rate, whichever is larger).
 Any failure raises, so the script exits non-zero. Before the last line it
 prints the kernels' JSON line: per kernel its launches on the main path
 (the 1 MB-shard encode of phase 4 and decode of phase 8), on the 4 MB-
@@ -75,9 +86,11 @@ shard path of phase 10 (`launches_4mb`), in phase 12's 1-rank NCCL encode
 error against the plain
 version, and its device time per launch (`ms`), its plain version's
 (`plain_ms`), the bound (`bound_ms`: the bytes it must move over 3.35
-TB/s; the operations are far below the peak rates) and `share_of_bound`,
-each computed from this run; tile_histogram's `rows128_*` keys are the
-same at (128, 32768); build_tables and copy_sources carry `ms_4mb`,
+TB/s, or for find_matches and lz_parse the larger of that and their
+integer operations over the int32 rate, `bound_by` saying which) and
+`share_of_bound`, each computed from this run; find_matches and lz_parse
+carry the same at the 4 MB shard (`*_4mb`); tile_histogram's `rows128_*`
+keys are the same at (128, 32768); build_tables and copy_sources carry `ms_4mb`,
 `bound_ms_4mb` and `share_of_bound_4mb` on phase 10's batch, and
 `call_ms_4mb` and `plain_call_ms_4mb`, one call each there by CUDA events,
 and copy_sources `bound_with_gathers_ms`, its bound with the pointer
@@ -124,18 +137,28 @@ WINDOW = 32768
 
 
 HBM_GBS = 3350.0                 # H100 SXM device memory, GB/s (data sheet)
+# int32 lanes per SM and boost clock of the H100 SXM (Hopper white paper):
+# the int32 rate is SMs x 64 x 1.98 GHz operations per second
+INT32_LANES = 64
+BOOST_GHZ = 1.98
+ENCODE_KERNELS = ("find_matches", "lz_parse")
+# lz_parse's integer operations per position, counted in csrc/lz_parse.cu:
+# the run test and search (about 4), three chain rounds (6 each), the
+# clamps (6), lazy (5), the outputs and the parse's three walks (7)
+LZ_PARSE_OPS = 40
 TABLE_BYTES = 17_792             # one block's decode tables (decode_symbols.cu)
 
 
 def timings(kernel: str, fn, plain, n: int, prof_n: int,
-            bound_bytes: int, reps: int = 25, plain_n: int | None = None
-            ) -> dict:
+            bound_bytes: int, reps: int = 25, plain_n: int | None = None,
+            bound_ops: int = 0) -> dict:
     """A kernel's and its plain version's times: per call (`cuda_ms`), on
     the device per launch (`device_ms`, n calls, plain_n of a slow plain
     version) and by kernel name under
     torch.profiler (`profiled_ms`, prof_n calls; the kernel's own entries,
     and every device entry of the plain version); and the bound, the
-    bytes the function must move over the card's memory rate."""
+    larger of the bytes the function must move over the card's memory rate
+    and its integer operations over the int32 rate."""
     t = {"call_ms": cuda_ms(fn, reps), "plain_call_ms": cuda_ms(plain, reps)}
     t["device_ms"], t["held"] = device_ms(fn, n)
     t["plain_device_ms"], t["plain_held"] = device_ms(plain, plain_n or n)
@@ -153,8 +176,17 @@ def timings(kernel: str, fn, plain, n: int, prof_n: int,
                      else t["plain_prof_ms"])
     t["bound_ms"] = bound_ms(bound_bytes)
     t["bound_by"] = "bytes"
+    ops_ms = bound_ops / int32_rate() * 1e3
+    if ops_ms > t["bound_ms"]:
+        t["bound_ms"], t["bound_by"] = ops_ms, "operations"
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
     return t
+
+
+def int32_rate() -> float:
+    """The card's int32 operations per second: SMs x lanes x boost clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES * BOOST_GHZ * 1e9
 
 
 def show(t: dict) -> str:
@@ -165,7 +197,8 @@ def show(t: dict) -> str:
     return (f"kernel {t['call_ms']:.4f} ms per call, "
             f"{dev(t['device_ms'], t['held'])} ms device per launch, "
             f"{t['prof_ms']:.4f} ms profiler, bound {t['bound_ms']:.5f} ms "
-            f"(bytes), share of bound {t['share_of_bound']:.3f}; plain "
+            f"({t['bound_by']}), share of bound {t['share_of_bound']:.3f}; "
+            f"plain "
             f"{t['plain_call_ms']:.4f} ms per call, "
             f"{dev(t['plain_device_ms'], t['plain_held'])} ms device, "
             f"{t['plain_prof_ms']:.4f} ms profiler over "
@@ -196,8 +229,10 @@ def main() -> int:
     from deflate_compression_tpu_torch.ops import copy_sources as CS
     from deflate_compression_tpu_torch.ops import cuda_build
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
+    from deflate_compression_tpu_torch.ops import find_matches as FM
     from deflate_compression_tpu_torch.ops import histogram as H
     from deflate_compression_tpu_torch.ops import lut_gather as LG
+    from deflate_compression_tpu_torch.ops import lz_parse as LP
 
     dev = torch.device("cuda")
     # ---------------------------------------------------------- 1. device
@@ -213,15 +248,18 @@ def main() -> int:
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
     builds = [cuda_build.Build(src) for src in (
-        H.SOURCE, DS.SOURCE, LG.SOURCE, BT.SOURCE, CS.SOURCE)]
+        H.SOURCE, DS.SOURCE, LG.SOURCE, BT.SOURCE, CS.SOURCE, FM.SOURCE,
+        LP.SOURCE)]
     lib = builds[0].wait()
     t_hist = time.perf_counter() - t0
-    ds_lib, lg_lib, bt_lib, cs_lib = (b.wait() for b in builds[1:])
+    ds_lib, lg_lib, bt_lib, cs_lib, fm_lib, lp_lib = (
+        b.wait() for b in builds[1:])
     t_ds = time.perf_counter() - t0
     print(f"phase 2 build: nvcc started on tile_histogram.cu, "
-          f"decode_symbols.cu, lut_gather.cu, build_tables.cu and "
-          f"copy_sources.cu together; {lib.name} in {t_hist:.2f} s, "
-          f"{ds_lib.name}, {lg_lib.name}, {bt_lib.name} and {cs_lib.name} "
+          f"decode_symbols.cu, lut_gather.cu, build_tables.cu, "
+          f"copy_sources.cu, find_matches.cu and lz_parse.cu together; "
+          f"{lib.name} in {t_hist:.2f} s, {ds_lib.name}, {lg_lib.name}, "
+          f"{bt_lib.name}, {cs_lib.name}, {fm_lib.name} and {lp_lib.name} "
           f"done {t_ds:.2f} s after the start")
     torch.cuda.synchronize()
 
@@ -277,17 +315,17 @@ def main() -> int:
     codec = ZlibCodec(cfg, device="cuda")
     codec.compress(raw)                           # warm-up
     torch.cuda.synchronize()
-    H.tile_histogram.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     blob, stats = codec.compress(raw, return_stats=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = H.tile_histogram.launches
+    enc_launches = read_counts()
     if zlib.decompress(blob) != raw:
         raise AssertionError("zlib.decompress(blob) != raw")
-    if launches != 2 * nsh:
-        raise AssertionError(f"tile_histogram launched {launches} times, "
-                             f"want {2 * nsh}")
+    if enc_launches != encode_counts(nsh):
+        raise AssertionError(f"the encode launched {enc_launches}, want "
+                             f"{encode_counts(nsh)}")
     if not (stats.n_tokens > 0 and stats.n_matches > 0):
         raise AssertionError("no tokens or no matches")
     if stats.btype_counts[0] == 0 or stats.btype_counts[2] == 0:
@@ -300,7 +338,7 @@ def main() -> int:
           f"encode {len(raw) / dt / 1e6:.3f} MB/s ({dt:.3f} s), "
           f"ratio {len(blob) / len(raw):.5f}, btype_counts "
           f"{stats.btype_counts}, tokens {stats.n_tokens}, matches "
-          f"{stats.n_matches}, tile_histogram launches {launches}; "
+          f"{stats.n_matches}, launches {enc_launches}; "
           f"host zlib-6 ratio {len(zc) / len(raw):.5f} at "
           f"{len(raw) / zdt / 1e6:.3f} MB/s; zlib.decompress OK")
     torch.cuda.synchronize()
@@ -318,9 +356,10 @@ def main() -> int:
                            (ds_lib.name, lg_lib.name, bt_lib.name,
                             cs_lib.name), t_ds)
     large = large_shard_phase(dev, len(raw) / dt)
-    px = surface_phase(raw, dev)
+    px, tr_launches = surface_phase(raw, dev)
     dist = dist_phase(raw, cfg, blob, dev, len(raw) / dt)
     cli = cli_phase(raw, blob, stats, px, dev)
+    lz = lz77_phase(raw, cfg, dev)
 
     def new_paths(name):
         paths = {"launches_4mb": large[name],
@@ -340,7 +379,8 @@ def main() -> int:
         "name": "tile_histogram", "route": "cuda",
         "source": "deflate_compression_tpu_torch/csrc/tile_histogram.cu",
         "replaces": "deflate_compression_tpu/ops/histogram_pallas.py:74",
-        "launches": launches, **new_paths("tile_histogram"),
+        "launches": enc_launches["tile_histogram"],
+        **new_paths("tile_histogram"),
         "launches_dist_gloo_ranks": dist["gloo_ranks"],
         "launches_resumable": dist["resumable"],
         "max_abs_err": max_err,
@@ -354,7 +394,23 @@ def main() -> int:
         "rows128_c30_ms": times[(128, 30, "int64", "random")]["ms"],
         "context_bincount_ms": times[(32, 286, "int64", "random")][
             "bincount_ms"]},
-        *({**d, **new_paths(d["name"])} for d in decode)]}))
+        *({**d, **new_paths(d["name"])} for d in decode),
+        *({"name": name, "route": "cuda",
+           "source": f"deflate_compression_tpu_torch/csrc/{name}.cu",
+           "replaces": replaces,
+           "launches": enc_launches[name], **new_paths(name),
+           "launches_trace": tr_launches[name],
+           "max_abs_err": lz["max_abs_err"][name],
+           **entry(lz["times"][name, "1mb"]), "library_ms": None,
+           **{f"{k}_4mb": lz["times"][name, "4mb"][k]
+              for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                        "share_of_bound", "call_ms", "plain_call_ms",
+                        "prof_ms", "plain_prof_ms")}}
+          for name, replaces in (
+              ("find_matches", "deflate_compression_tpu/core/lz77.py:88 "
+               "(left to XLA there: no Pallas kernel)"),
+              ("lz_parse", "deflate_compression_tpu/core/lz77.py:497 and "
+               ":340 (left to XLA there: no Pallas kernel)")))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -446,7 +502,7 @@ def verified_decode(raw: bytes, batch, valid, S: int):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
-    if launches != {"tile_histogram": 0, **{k: 1 for k in DECODE_KERNELS}}:
+    if launches != decode_counts(1):
         raise AssertionError(f"flat decode of {S}-byte shards launched "
                              f"{launches}")
     if not ok or ads != want:
@@ -785,8 +841,7 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
     if got_raw != raw:
         raise AssertionError("decompress_indexed != input")
     n_groups = idx_launches["build_tables"]
-    if n_groups < 2 or idx_launches != {
-            "tile_histogram": 0, **{k: n_groups for k in DECODE_KERNELS}}:
+    if n_groups < 2 or idx_launches != decode_counts(n_groups):
         raise AssertionError(f"decompress_indexed launched {idx_launches}")
 
     fraw = raw[:FOREIGN_BYTES]
@@ -1014,18 +1069,18 @@ def large_shard_phase(dev, mbs_1mb: float) -> dict:
     encode_shard(x0.to(dev), vl0, fin0)          # warm-up at the new shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    H.tile_histogram.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     blob, stats = ZlibCodec(cfg, device=dev).compress(raw, return_stats=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    hist_launches = H.tile_histogram.launches
+    enc_launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if zlib.decompress(blob) != raw:
         raise AssertionError("4 MB shards: zlib.decompress(blob) != raw")
-    if hist_launches != 2 * nsh:
-        raise AssertionError(f"4 MB shards: tile_histogram launched "
-                             f"{hist_launches} times, want {2 * nsh}")
+    if enc_launches != encode_counts(nsh):
+        raise AssertionError(f"4 MB shards: the encode launched "
+                             f"{enc_launches}, want {encode_counts(nsh)}")
 
     t0 = time.perf_counter()
     checked = gpu_equals_cpu(raw, S, dev)
@@ -1078,7 +1133,8 @@ def large_shard_phase(dev, mbs_1mb: float) -> dict:
           f"in phase 4: {mbs_1mb / 1e6:.3f} MB/s), ratio "
           f"{len(blob) / len(raw):.5f}, btype_counts {stats.btype_counts}, "
           f"peak device memory {peak_gib:.2f} GiB, zlib.decompress OK, "
-          f"tile_histogram launches {hist_launches} at ({S // 32768}, 32768); "
+          f"launches {enc_launches} (tile_histogram at ({S // 32768}, "
+          f"32768)); "
           f"GPU == "
           f"CPU (words, total_bits, btype, block_bits, sub_*) for shards "
           f"(index, bytes, bits) {checked}, the two CPU and GPU encodes "
@@ -1098,7 +1154,9 @@ def large_shard_phase(dev, mbs_1mb: float) -> dict:
           f"decompress_indexed with the encoder's index ({index.n_subs} "
           f"entries, groups of {S} bytes) {len(raw) / t_idx / 1e6:.3f} MB/s")
     torch.cuda.synchronize()
-    return {**launches, "tile_histogram": hist_launches,
+    return {**launches,
+            **{k: enc_launches[k] for k in ("tile_histogram",
+                                            *ENCODE_KERNELS)},
             "phases": ph, "device_ms": dev_ms, "bound_ms": bounds}
 
 
@@ -1132,11 +1190,11 @@ def png_bytes(px: np.ndarray) -> bytes:
             + chunk(b"IEND", b""))
 
 
-def surface_phase(raw: bytes, dev) -> np.ndarray:
+def surface_phase(raw: bytes, dev) -> tuple:
     """Phase 11: the codec's surface around the card's encoder: the three
     containers' compress on the card and decompress on the host, the
     self-check, verify_stream, png_decode and the per-symbol trace. Returns
-    the pixels of the PNG it decoded."""
+    the pixels of the PNG it decoded and the trace's launches."""
     import gzip
 
     from deflate_compression_tpu_torch import (
@@ -1193,11 +1251,15 @@ def surface_phase(raw: bytes, dev) -> np.ndarray:
 
     tr = raw[:TRACE_BYTES]
     kw = {"stride": 64, "header_stride": 16}
+    zero_counts()
     t0 = time.perf_counter()
     on_card = per_symbol_trace_csv(tr, device=dev, **kw)
     t_tr = time.perf_counter() - t0
+    tr_launches = read_counts()
     if on_card != per_symbol_trace_csv(tr, device="cpu", **kw):
         raise AssertionError("per_symbol_trace_csv: card != CPU")
+    if tr_launches != {**encode_counts(1), "tile_histogram": 0}:
+        raise AssertionError(f"per_symbol_trace_csv launched {tr_launches}")
     print(f"phase 11 codec surface: {len(raw)} bytes in 1 MB shards, "
           f"compress on the card, decompress on the host ({inflater} "
           f"inflater): {'; '.join(rows)}; all equal the input and zlib / "
@@ -1206,9 +1268,10 @@ def surface_phase(raw: bytes, dev) -> np.ndarray:
           f"{n_checks} checks true ({t_vs:.2f} s); png_decode of a "
           f"{px.shape[1]}x{px.shape[0]} RGBA8 PNG, five filters: pixels "
           f"equal; per_symbol_trace_csv of {len(tr)} bytes on the card "
-          f"({t_tr:.2f} s, {len(on_card.splitlines()) - 1} records) == CPU")
+          f"({t_tr:.2f} s, {len(on_card.splitlines()) - 1} records, "
+          f"launches {tr_launches}) == CPU")
     torch.cuda.synchronize()
-    return px
+    return px, tr_launches
 
 
 # ------------------------------------------------------- 12. distributed
@@ -1218,11 +1281,26 @@ def counters() -> dict:
     from deflate_compression_tpu_torch.ops import build_tables as BT
     from deflate_compression_tpu_torch.ops import copy_sources as CS
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
+    from deflate_compression_tpu_torch.ops import find_matches as FM
     from deflate_compression_tpu_torch.ops import histogram as H
     from deflate_compression_tpu_torch.ops import lut_gather as LG
+    from deflate_compression_tpu_torch.ops import lz_parse as LP
     return {"tile_histogram": H.tile_histogram,
+            "find_matches": FM.find_matches, "lz_parse": LP.lz_parse,
             "decode_symbols": DS.decode_symbols, "lut_gather": LG.lut_gather,
             "build_tables": BT.build_tables, "copy_sources": CS.resolve_bytes}
+
+
+def encode_counts(nsh: int) -> dict:
+    """Each kernel's launches in an encode of nsh shards."""
+    return {"tile_histogram": 2 * nsh, **{k: nsh for k in ENCODE_KERNELS},
+            **{k: 0 for k in DECODE_KERNELS}}
+
+
+def decode_counts(n: int) -> dict:
+    """Each kernel's launches in n decodes (flat batches or groups)."""
+    return {"tile_histogram": 0, **{k: 0 for k in ENCODE_KERNELS},
+            **{k: n for k in DECODE_KERNELS}}
 
 
 def zero_counts() -> None:
@@ -1373,8 +1451,7 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
         tdist.destroy_process_group()
     if out != blob:
         raise AssertionError("1-rank NCCL compress_distributed != phase 4")
-    if launches != {"tile_histogram": 2 * nsh,
-                    **{k: 0 for k in DECODE_KERNELS}}:
+    if launches != encode_counts(nsh):
         raise AssertionError(f"1-rank NCCL run launched {launches}")
 
     with tempfile.TemporaryDirectory() as d:
@@ -1471,13 +1548,17 @@ import atexit, json, runpy, sys
 from deflate_compression_tpu_torch.ops import build_tables as BT
 from deflate_compression_tpu_torch.ops import copy_sources as CS
 from deflate_compression_tpu_torch.ops import decode_symbols as DS
+from deflate_compression_tpu_torch.ops import find_matches as FM
 from deflate_compression_tpu_torch.ops import histogram as H
 from deflate_compression_tpu_torch.ops import lut_gather as LG
+from deflate_compression_tpu_torch.ops import lz_parse as LP
 
 
 def _counts():
     print("LAUNCHES " + json.dumps({
         "tile_histogram": H.tile_histogram.launches,
+        "find_matches": FM.find_matches.launches,
+        "lz_parse": LP.lz_parse.launches,
         "decode_symbols": DS.decode_symbols.launches,
         "lut_gather": LG.lut_gather.launches,
         "build_tables": BT.build_tables.launches,
@@ -1551,8 +1632,9 @@ def cli_phase(raw: bytes, blob: bytes, stats, px: np.ndarray, dev) -> dict:
          and "PASS original" in res["verify"][1]),
         ("png --raw: phase 11's pixels",
          got["png.raw"] == px[..., :3].tobytes()),
-        ("compress launches", counts["compress"]["tile_histogram"]
-         == 2 * math.ceil(len(raw) / (1 << 20))),
+        ("compress launches", counts["compress"] == encode_counts(
+            math.ceil(len(raw) / (1 << 20)))),
+        ("trace launches", counts["trace"] == counts["compress"]),
         ("decompress --index launches",
          min(counts["decompress --index"][k] for k in DECODE_KERNELS) >= 1)]
     bad = [name for name, ok in checks if not ok]
@@ -1567,6 +1649,93 @@ def cli_phase(raw: bytes, blob: bytes, stats, px: np.ndarray, dev) -> dict:
           f"{res['inspect'][0].splitlines()[-1]}")
     torch.cuda.synchronize()
     return counts
+
+
+# ------------------------------------------------ 14. the LZ77 kernels
+
+def lz77_phase(raw: bytes, cfg, dev) -> dict:
+    """Phase 14: find_matches and lz_parse against their plain versions,
+    exactly, on phase 4's first and last shards, one 4 MB shard, the
+    trace's input and the edge cases of `corpus.lz_case`; tokenize under
+    sync debug mode "error"; both kernels' times at phase 4's first shard
+    and at the 4 MB shard. Returns each kernel's largest error and its
+    `timings` by (kernel, "1mb" or "4mb")."""
+    from deflate_compression_tpu_torch import corpus
+    from deflate_compression_tpu_torch.core.lz77 import tokenize
+    from deflate_compression_tpu_torch.ops import find_matches as FM
+    from deflate_compression_tpu_torch.ops import lz_parse as LP
+
+    S = cfg.shard_size
+    cases = {}                  # label -> (data, valid_len, lazy, K)
+    for s_ in (0, math.ceil(len(raw) / S) - 1):
+        x, vl, _ = shard_input(raw, S, s_)
+        cases[f"1 MB shard {s_}"] = (x.to(dev), vl, cfg.lazy,
+                                     cfg.num_candidates)
+    big = np.frombuffer(corpus.build_corpus(LARGE_SHARD), np.uint8)
+    cases["4 MB shard 0"] = (torch.from_numpy(big.copy()).to(dev),
+                             LARGE_SHARD, cfg.lazy, cfg.num_candidates)
+    tr = np.frombuffer(raw[:TRACE_BYTES], np.uint8)
+    cases["the trace's input"] = (torch.from_numpy(tr.copy()).to(dev),
+                                  TRACE_BYTES, True, 32)
+    for name in corpus.LZ_CASES:
+        data, vl, lazy, K = corpus.lz_case(name)
+        cases[name] = (torch.from_numpy(data).to(dev), vl, lazy, K)
+
+    err = {"find_matches": 0, "lz_parse": 0}
+    work = {}
+    for label, (x, vl, lazy, K) in cases.items():
+        work[label] = {}
+        m = FM.find_matches(x, K)
+        err["find_matches"] = max(err["find_matches"], same(
+            m, FM.find_matches_ref(x, K, stats=work[label]),
+            f"find_matches, {label}"))
+        got = LP.lz_parse(x, *m, vl, lazy)
+        want = LP.lz_parse_ref(x, *m, vl, lazy)
+        err["lz_parse"] = max(err["lz_parse"], same(
+            [got[k] for k in want], list(want.values()),
+            f"lz_parse, {label}"))
+    x, vl, lazy, K = cases["1 MB shard 0"]
+    want = LP.lz_parse_ref(x, *FM.find_matches_ref(x, K), vl, lazy)
+    quiet = no_sync(lambda: tokenize(x, vl, K, lazy))
+    same([quiet[k] for k in want], list(want.values()),
+         "tokenize under sync debug mode")
+
+    times, shown = {}, []
+    for size, label in (("1mb", "1 MB shard 0"), ("4mb", "4 MB shard 0")):
+        x, vl, lazy, K = cases[label]
+        n = x.numel()
+        m = FM.find_matches(x, K)
+        w = work[label]
+        # bytes: the shard read, two int64 outputs written; operations: the
+        # hash, link and outputs (8 per position), one load per candidate
+        # and one compare per byte scored
+        fm = times["find_matches", size] = timings(
+            "find_matches_", lambda: FM.find_matches(x, K),
+            lambda: FM.find_matches_ref(x, K), 20, 3, 17 * n, reps=5,
+            plain_n=3, bound_ops=8 * n + w["visits"] + w["compared"])
+        # bytes: the shard and (length, dist) read; chosen, length and dist
+        # written
+        lp = times["lz_parse", size] = timings(
+            "lz_parse_kernel", lambda: LP.lz_parse(x, *m, vl, lazy),
+            lambda: LP.lz_parse_ref(x, *m, vl, lazy), 20, 3, 34 * n,
+            reps=5, plain_n=3, bound_ops=LZ_PARSE_OPS * n)
+        whole = {}
+        for k, v in profiled_ms(lambda: FM.find_matches(x, K), 3).items():
+            k = re.search(r"\w*(_kernel|Kernel)|$", k).group() or k[:30]
+            whole[k] = round(whole.get(k, 0.0) + v, 4)
+        shown.append(
+            f"{label} ({n} bytes, {w['visits']} candidates scored, "
+            f"{w['compared']} bytes compared): find_matches {show(fm)}; "
+            f"its call by kernel under the profiler, ms {whole}; "
+            f"lz_parse {show(lp)}")
+    print(f"phase 14 LZ77 kernels: tolerance 0 (exact); find_matches (max "
+          f"abs err {err['find_matches']}) and lz_parse (max abs err "
+          f"{err['lz_parse']}) == their plain versions on {len(cases)} "
+          f"inputs ({', '.join(cases)}); tokenize ran under sync debug mode "
+          f"\"error\"; {'; '.join(shown)}; no single PyTorch call computes "
+          f"either function")
+    torch.cuda.synchronize()
+    return {"max_abs_err": err, "times": times}
 
 
 if __name__ == "__main__":

@@ -2,23 +2,17 @@
 
 The JAX module blocks its scans in two levels to cut XLA's log2(S) passes
 on the TPU. PyTorch's own scans are single-pass on the card, so these are
-plain `cummax` / `cummin` / `cumsum` with the same semantics.
+plain `cummin` / `cummax` with the same semantics: the reverse run-end
+cummin of the LZ77 stage's plain version (ops/lz_parse.py) and the
+row-wise cummax of the encoder's sub-entry index (format/deflate.py).
 """
 from __future__ import annotations
 
 import torch
 
 
-def cummax(x: torch.Tensor) -> torch.Tensor:
-    return torch.cummax(x, dim=0).values
-
-
 def cummin(x: torch.Tensor) -> torch.Tensor:
     return torch.cummin(x, dim=0).values
-
-
-def cumsum(x: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(x, dim=0)
 
 
 def cummax_rows(x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,9 @@ from pathlib import Path
 
 import numpy as np
 
+from .format import constants as C
+from .ops.find_matches import HASH_MUL
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -76,3 +79,98 @@ def build_corpus(total: int, seed: int = 1234) -> bytes:
         parts += pieces
         size += sum(len(p) for p in pieces)
     return b"".join(parts)[:total]
+
+
+# ------------------------------------------- edge cases of the LZ77 stage
+
+def hash_collision() -> tuple:
+    """Two different trigrams (as bytes) with one 16-bit hash."""
+    tri = np.arange(1 << 20, dtype=np.uint64)
+    h = ((tri * HASH_MUL) & 0xFFFFFFFF) >> 16
+    order = np.argsort(h, kind="stable")
+    j = int(np.flatnonzero(h[order][1:] == h[order][:-1])[0])
+    return tuple(int(t).to_bytes(3, "little") for t in order[j:j + 2])
+
+
+def hash3_np(data: np.ndarray) -> np.ndarray:
+    """find_matches' hash of the three bytes at each position (0 past the
+    end), in numpy."""
+    d = np.concatenate([data, np.zeros(2, np.uint8)]).astype(np.uint64)
+    tri = d[:-2] | d[1:-1] << 8 | d[2:] << 16
+    return ((tri * HASH_MUL) & 0xFFFFFFFF) >> 16
+
+
+def _place(n: int, seed: int, parts: dict) -> np.ndarray:
+    """n random bytes with each bytes object of `parts` at its offset."""
+    out = np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
+    for at, b in parts.items():
+        out[at:at + len(b)] = np.frombuffer(b, np.uint8)
+    return out
+
+
+def lz_case(name: str) -> tuple:
+    """(data u8[S], valid_len, lazy, num_candidates) of one edge case of
+    the LZ77 stage:
+    tail_tie      the zero padding past S decides the preselect winner in
+                  the shard's last 11 bytes (the farther candidate is
+                  followed by zeros, the nearer by nonzero bytes);
+    collision_kN  a different trigram of the same hash sits between a
+                  position and its true match, using up one of K = N;
+    dist_32768    one match exactly 32768 back (allowed), one 32769 back
+                  (out of the window);
+    clamp_dist    matches cut below 3 bytes by the tile boundary and by
+                  valid_len, which keep their dist;
+    chain         a 100-byte period over 40 KB: every match chains to 258
+                  through all three extension rounds;
+    short_valid   valid_len well under S; greedy  lazy=False;
+    k1, k255      the bounds of K; s40000  S not a multiple of 32768;
+    s1, s2        S under 3."""
+    rng = np.random.default_rng(len(name))
+    W = C.WINDOW_SIZE
+    if name == "tail_tie":
+        S = 4096
+        x = bytes(rng.integers(1, 256, 5, dtype=np.uint8))
+        tail = bytes(rng.integers(1, 256, 11, dtype=np.uint8))
+        return _place(S, 1, {1000: x + bytes(40), 2000: x + tail,
+                             S - 5: x}), S, True, 32
+    if name.startswith("collision"):
+        t1, t2 = hash_collision()
+        body = bytes(rng.integers(0, 256, 20, dtype=np.uint8))
+        for seed in range(100):
+            d = _place(4096, seed, {1000: t1 + body, 2000: t2 + body[::-1],
+                                    3000: t1 + body})
+            h = hash3_np(d)
+            if (np.flatnonzero(h == h[1000]) == [1000, 2000, 3000]).all():
+                return d, 4096, True, int(name[len("collision_k"):])
+        raise AssertionError("no filler without a third same-hash position")
+    if name == "dist_32768":
+        a = bytes(rng.integers(0, 256, 40, dtype=np.uint8))
+        b = bytes(rng.integers(0, 256, 40, dtype=np.uint8))
+        return _place(70_000, 2, {100: a, 100 + W: a, 200: b,
+                                  200 + W + 1: b}), 70_000, True, 32
+    if name == "clamp_dist":
+        r = bytes(rng.integers(0, 256, 60, dtype=np.uint8))
+        S, vl = 2 * W, 2 * W - 1000
+        return _place(S, 3, {100: r, W - 10: r, 5000: r, vl - 2: r}), vl, \
+            True, 32
+    if name == "chain":
+        period = np.resize(rng.integers(0, 256, 100, dtype=np.uint8), 40_000)
+        return period, 40_000, True, 32
+    if name == "short_valid":
+        return sample("mixed", 1 << 16, seed=4), 12_345, True, 32
+    if name == "greedy":
+        return sample("text", 1 << 16, seed=4), 1 << 16, False, 32
+    if name in ("k1", "k255"):
+        return (sample("mixed", 1 << 16, seed=6), (1 << 16) - 77, True,
+                int(name[1:]))
+    if name == "s40000":
+        return sample("mixed", 40_000, seed=7), 40_000, True, 32
+    if name in ("s1", "s2"):
+        n = int(name[1:])
+        return np.frombuffer(b"aa"[:n], np.uint8).copy(), n, True, 32
+    raise ValueError(name)
+
+
+LZ_CASES = ["tail_tie", "collision_k1", "collision_k2", "dist_32768",
+            "clamp_dist", "chain", "short_valid", "greedy", "k1", "k255",
+            "s40000", "s1", "s2"]

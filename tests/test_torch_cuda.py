@@ -103,9 +103,10 @@ def test_tile_histogram_kernel_cluster_sizes(cuda, rows, length):
     (4 << 20, (4 << 20) - 12345, False), (1_081_344, 1_081_344, True)])
 def test_encode_shard_cuda_matches_cpu(cuda, size, valid_len, final):
     x = torch.from_numpy(corpus.sample("mixed", size, seed=1))
-    before = H.tile_histogram.launches
+    fns = (H.tile_histogram, FM.find_matches, LP.lz_parse)
+    before = [f.launches for f in fns]
     g = td.encode_shard(x.to(cuda), valid_len, final)
-    assert H.tile_histogram.launches == before + 2
+    assert [f.launches - n for f, n in zip(fns, before)] == [2, 1, 1]
     c = td.encode_shard(x, valid_len, final)
     nw = (int(c["total_bits"]) + 31) // 32
     assert torch.equal(g["words"][:nw].cpu(), c["words"][:nw])
@@ -141,9 +142,11 @@ def test_trace_on_the_card_matches_cpu(cuda):
     from deflate_compression_tpu_torch.utils.trace import per_symbol_trace_csv
     raw = corpus.sample("mixed", 40_000, seed=3).tobytes()
     kw = {"stride": 13, "header_stride": 5}
-    before = H.tile_histogram.launches
+    fns = (H.tile_histogram, FM.find_matches, LP.lz_parse)
+    before = [f.launches for f in fns]
     got = per_symbol_trace_csv(raw, device="cuda", **kw)
-    assert H.tile_histogram.launches == before       # tokenize only
+    # tokenize only
+    assert [f.launches - n for f, n in zip(fns, before)] == [0, 1, 1]
     assert got == per_symbol_trace_csv(raw, device="cpu", **kw)
 
 
@@ -289,22 +292,32 @@ def test_decode_symbols_kernel_lanes_in_any_order(cuda, order):
 
 @pytest.mark.cuda
 def test_wrappers_do_not_synchronize(cuda):
-    """Both redesigned wrappers launch with no host synchronisation."""
+    """Both redesigned wrappers, and find_matches and lz_parse (tokenize),
+    launch with no host synchronisation."""
     sym = _hist_rows(32, 32768, 286, torch.int64, 1)
     args = _foreign_args(cuda)
+    x = torch.from_numpy(corpus.sample("mixed", 1 << 20, seed=3)).to(cuda)
     H.tile_histogram(sym, 286)
     DS.decode_symbols(*args)
+    TL.tokenize(x, 1_000_000)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         hist = H.tile_histogram(sym, 286)
         res = DS.decode_symbols(*args)
+        matches = FM.find_matches(x, 32)
+        tok = LP.lz_parse(x, *matches, 1_000_000, True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert torch.equal(hist, H.tile_histogram_ref(sym, 286))
-    for g, x in zip(res, DS.decode_symbols_ref(*args)):
-        assert torch.equal(g, x)
+    for g, x_ in zip(res, DS.decode_symbols_ref(*args)):
+        assert torch.equal(g, x_)
+    for g, x_ in zip(matches, FM.find_matches_ref(x, 32)):
+        assert torch.equal(g, x_)
+    want = LP.lz_parse_ref(x, *matches, 1_000_000, True)
+    for key in want:
+        assert torch.equal(tok[key], want[key]), key
 
 
 @pytest.mark.cuda
@@ -714,28 +727,34 @@ def test_phase_wrappers_do_not_synchronize(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mod", ["build_tables", "copy_sources"])
+@pytest.mark.parametrize("mod", ["build_tables", "copy_sources",
+                                 "find_matches", "lz_parse"])
 def test_phase_kernels_raise_when_the_library_cannot_load(cuda, mod,
                                                           monkeypatch):
     """No fallback: on CUDA tensors a wrapper whose library does not build
     raises, and never takes the plain version."""
     flat, S = _flat_plan_cuda(cuda, size=1 << 16)
     p, tok = _plan_and_tokens(flat, S)
-    m = BT if mod == "build_tables" else CS
+    x = torch.from_numpy(corpus.sample("mixed", 1 << 16, seed=1)).to(cuda)
+    zeros = torch.zeros(1 << 16, dtype=torch.int64, device=cuda)
+    m, ref, call = {
+        "build_tables": (BT, "build_tables_ref", lambda: BT.build_tables(
+            p.w, p.blk_bit, flat["blk_btype"], flat["n_blocks"])),
+        "copy_sources": (CS, "resolve_bytes_ref",
+                         lambda: CS.resolve_bytes(*_bytes_args(p, tok), S)),
+        "find_matches": (FM, "find_matches_ref",
+                         lambda: TL.tokenize(x, 1 << 16)),
+        "lz_parse": (LP, "lz_parse_ref",
+                     lambda: LP.lz_parse(x, zeros, zeros, 1 << 16))}[mod]
 
     def boom(*a, **k):
         raise RuntimeError("nvcc failed (test)")
     m._bind.cache_clear()
     monkeypatch.setattr(cuda_build, "load", boom)
-    monkeypatch.setattr(m, mod + "_ref" if mod == "build_tables"
-                        else "resolve_bytes_ref", None)
+    monkeypatch.setattr(m, ref, None)
     try:
         with pytest.raises(RuntimeError, match="nvcc failed"):
-            if m is BT:
-                BT.build_tables(p.w, p.blk_bit, flat["blk_btype"],
-                                flat["n_blocks"])
-            else:
-                CS.resolve_bytes(*_bytes_args(p, tok), S)
+            call()
     finally:
         m._bind.cache_clear()
 
@@ -752,3 +771,65 @@ def test_decode_launches_all_four_decode_kernels(cuda):
                                1 << 18)
     assert bool(g["ok"])
     assert [f.launches for f in fns] == [n + 1 for n in before]
+
+
+# ------------------------------------------------- find_matches and lz_parse
+
+from deflate_compression_tpu_torch.core import lz77 as TL  # noqa: E402
+from deflate_compression_tpu_torch.ops import find_matches as FM  # noqa: E402
+from deflate_compression_tpu_torch.ops import lz_parse as LP  # noqa: E402
+
+def _same_matches(data, k):
+    before = FM.find_matches.launches
+    got = FM.find_matches(data, k)
+    torch.cuda.synchronize()
+    assert FM.find_matches.launches == before + 1
+    want = FM.find_matches_ref(data, k)
+    for g, x in zip(got, want):
+        assert g.dtype == torch.int64 and torch.equal(g, x)
+    return got
+
+
+def _same_parse(data, length, dist, valid_len, lazy):
+    before = LP.lz_parse.launches
+    got = LP.lz_parse(data, length, dist, valid_len, lazy)
+    torch.cuda.synchronize()
+    assert LP.lz_parse.launches == before + 1
+    want = LP.lz_parse_ref(data, length, dist, valid_len, lazy)
+    for key in ("chosen", "length", "dist"):
+        assert got[key].dtype == want[key].dtype, key
+        diff = torch.nonzero(got[key] != want[key]).flatten()
+        assert diff.numel() == 0, (key, diff[:8].tolist(), diff.numel())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", corpus.LZ_CASES)
+def test_lz77_kernels_match_plain_on_edge_cases(cuda, name):
+    data, vl, lazy, k = corpus.lz_case(name)
+    x = torch.from_numpy(data).to(cuda)
+    length, dist = _same_matches(x, k)
+    _same_parse(x, length, dist, vl, lazy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,size", [
+    *((k, 1 << 16) for k in ("text", "random", "periodic", "zeros", "rgb",
+                             "cpp", "mixed")),
+    ("mixed", 1 << 20), ("zeros", 1 << 20), ("mixed", 4 << 20)])
+def test_lz77_kernels_match_plain_on_corpus_kinds(cuda, kind, size):
+    x = torch.from_numpy(corpus.sample(kind, size, seed=2)).to(cuda)
+    length, dist = _same_matches(x, 32)
+    _same_parse(x, length, dist, size - 999, True)
+
+
+@pytest.mark.cuda
+def test_tokenize_launches_each_kernel_once(cuda):
+    x = torch.from_numpy(corpus.sample("mixed", 1 << 17, seed=8)).to(cuda)
+    before = (FM.find_matches.launches, LP.lz_parse.launches)
+    got = TL.tokenize(x, 100_000)
+    assert (FM.find_matches.launches, LP.lz_parse.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = TL.tokenize(x.cpu(), 100_000)
+    for key in ("chosen", "length", "dist"):
+        assert torch.equal(got[key].cpu(), want[key]), key

@@ -163,10 +163,18 @@ def test_gzip_codec_and_trace_default_device_is_cuda(monkeypatch):
 
 
 def test_kernel_wrappers_reject_other_devices():
+    from deflate_compression_tpu_torch.ops.find_matches import find_matches
     from deflate_compression_tpu_torch.ops.lut_gather import lut_gather
+    from deflate_compression_tpu_torch.ops.lz_parse import lz_parse
     tbl = torch.zeros(2048, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         lut_gather(tbl, torch.zeros(16, dtype=torch.int32, device="meta"))
+    data = torch.zeros(4096, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        find_matches(data, 32)
+    i64 = torch.zeros(4096, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        lz_parse(data, i64, i64, 4096)
 
 
 def test_decompress_indexed_default_device_is_cuda(monkeypatch):
