@@ -75,9 +75,11 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      plain versions, exactly, on phase 4's first and last shards, one 4 MB
      shard, the trace's input and the edge cases of `corpus.lz_case`;
      tokenize once under sync debug mode "error"; both kernels' and plain
-     versions' times as in phase 3 at 1 MB and 4 MB shards, beside the
-     bound (bytes over 3.35 TB/s or integer operations over the int32
-     rate, whichever is larger).
+     versions' times as in phase 3 at 1 MB and 4 MB shards, as tokenize
+     calls them (the packed hand-off), beside the bound (bytes over 3.35
+     TB/s or integer operations over the int32 rate, whichever is larger);
+     each call's kernels under the profiler (find_matches: hash, sort, links, walk; lz_parse: the
+     match and parse kernels), and tokenize's peak device memory at 4 MB.
 Any failure raises, so the script exits non-zero. Before the last line it
 prints the kernels' JSON line: per kernel its launches on the main path
 (the 1 MB-shard encode of phase 4 and decode of phase 8), on the 4 MB-
@@ -89,8 +91,11 @@ version, and its device time per launch (`ms`), its plain version's
 TB/s, or for find_matches and lz_parse the larger of that and their
 integer operations over the int32 rate, `bound_by` saying which) and
 `share_of_bound`, each computed from this run; find_matches and lz_parse
-carry the same at the 4 MB shard (`*_4mb`); tile_histogram's `rows128_*`
-keys are the same at (128, 32768); build_tables and copy_sources carry `ms_4mb`,
+are timed as tokenize calls them (packed result; bound bytes 5 and 22 a
+position), carry `by_kernel`, the same at the 4 MB shard (`*_4mb`), and
+find_matches `tokenize_peak_mib_4mb`;
+tile_histogram's `rows128_*` keys are the same at (128, 32768);
+build_tables and copy_sources carry `ms_4mb`,
 `bound_ms_4mb` and `share_of_bound_4mb` on phase 10's batch, and
 `call_ms_4mb` and `plain_call_ms_4mb`, one call each there by CUDA events,
 and copy_sources `bound_with_gathers_ms`, its bound with the pointer
@@ -402,10 +407,13 @@ def main() -> int:
            "launches_trace": tr_launches[name],
            "max_abs_err": lz["max_abs_err"][name],
            **entry(lz["times"][name, "1mb"]), "library_ms": None,
+           "by_kernel": lz["times"][name, "1mb"]["by_kernel"],
            **{f"{k}_4mb": lz["times"][name, "4mb"][k]
               for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                         "share_of_bound", "call_ms", "plain_call_ms",
-                        "prof_ms", "plain_prof_ms")}}
+                        "prof_ms", "plain_prof_ms")},
+           **({"tokenize_peak_mib_4mb": lz["tokenize_peak_mib"]}
+              if name == "find_matches" else {})}
           for name, replaces in (
               ("find_matches", "deflate_compression_tpu/core/lz77.py:88 "
                "(left to XLA there: no Pallas kernel)"),
@@ -1656,10 +1664,12 @@ def cli_phase(raw: bytes, blob: bytes, stats, px: np.ndarray, dev) -> dict:
 def lz77_phase(raw: bytes, cfg, dev) -> dict:
     """Phase 14: find_matches and lz_parse against their plain versions,
     exactly, on phase 4's first and last shards, one 4 MB shard, the
-    trace's input and the edge cases of `corpus.lz_case`; tokenize under
-    sync debug mode "error"; both kernels' times at phase 4's first shard
-    and at the 4 MB shard. Returns each kernel's largest error and its
-    `timings` by (kernel, "1mb" or "4mb")."""
+    trace's input and the edge cases of `corpus.lz_case`, both as int64
+    calls and through the packed hand-off; tokenize under sync debug mode
+    "error"; both kernels' times at phase 4's first shard and at the 4 MB
+    shard; tokenize's peak device memory at 4 MB. Returns each kernel's
+    largest error, its `timings` by (kernel, "1mb" or "4mb") and the
+    peak."""
     from deflate_compression_tpu_torch import corpus
     from deflate_compression_tpu_torch.core.lz77 import tokenize
     from deflate_compression_tpu_torch.ops import find_matches as FM
@@ -1689,11 +1699,15 @@ def lz77_phase(raw: bytes, cfg, dev) -> dict:
         err["find_matches"] = max(err["find_matches"], same(
             m, FM.find_matches_ref(x, K, stats=work[label]),
             f"find_matches, {label}"))
-        got = LP.lz_parse(x, *m, vl, lazy)
         want = LP.lz_parse_ref(x, *m, vl, lazy)
-        err["lz_parse"] = max(err["lz_parse"], same(
-            [got[k] for k in want], list(want.values()),
-            f"lz_parse, {label}"))
+        pm = FM.find_matches_packed(x, K)
+        err["find_matches"] = max(err["find_matches"], same(
+            [pm], [FM.pack(*m)], f"find_matches_packed, {label}"))
+        for how, got in (("", LP.lz_parse(x, *m, vl, lazy)),
+                         ("_packed", LP.lz_parse_packed(x, pm, vl, lazy))):
+            err["lz_parse"] = max(err["lz_parse"], same(
+                [got[k] for k in want], list(want.values()),
+                f"lz_parse{how}, {label}"))
     x, vl, lazy, K = cases["1 MB shard 0"]
     want = LP.lz_parse_ref(x, *FM.find_matches_ref(x, K), vl, lazy)
     quiet = no_sync(lambda: tokenize(x, vl, K, lazy))
@@ -1705,29 +1719,49 @@ def lz77_phase(raw: bytes, cfg, dev) -> dict:
         x, vl, lazy, K = cases[label]
         n = x.numel()
         m = FM.find_matches(x, K)
+        pm = FM.find_matches_packed(x, K)
         w = work[label]
-        # bytes: the shard read, two int64 outputs written; operations: the
-        # hash, link and outputs (8 per position), one load per candidate
-        # and one compare per byte scored
+        # operations: the hash, link and outputs (8 per position); per
+        # candidate, the load of its link and at least one compare (the
+        # one-byte check turns most away); the rescore's 4-byte compares
+        ops = 8 * n + 2 * w["visits"] + w["rescore_words"]
+        # as tokenize calls them, through the packed hand-off: find_matches
+        # reads the shard and writes 4 bytes a position; lz_parse reads the
+        # shard and those 4 bytes, and writes chosen, length and dist
         fm = times["find_matches", size] = timings(
-            "find_matches_", lambda: FM.find_matches(x, K),
-            lambda: FM.find_matches_ref(x, K), 20, 3, 17 * n, reps=5,
-            plain_n=3, bound_ops=8 * n + w["visits"] + w["compared"])
-        # bytes: the shard and (length, dist) read; chosen, length and dist
-        # written
+            "find_matches_", lambda: FM.find_matches_packed(x, K),
+            lambda: FM.pack(*FM.find_matches_ref(x, K)), 20, 3, 5 * n,
+            reps=5, plain_n=3, bound_ops=ops)
         lp = times["lz_parse", size] = timings(
-            "lz_parse_kernel", lambda: LP.lz_parse(x, *m, vl, lazy),
-            lambda: LP.lz_parse_ref(x, *m, vl, lazy), 20, 3, 34 * n,
+            "lz_parse_", lambda: LP.lz_parse_packed(x, pm, vl, lazy),
+            lambda: LP.lz_parse_ref(x, *m, vl, lazy), 20, 3, 22 * n,
             reps=5, plain_n=3, bound_ops=LZ_PARSE_OPS * n)
-        whole = {}
-        for k, v in profiled_ms(lambda: FM.find_matches(x, K), 3).items():
-            k = re.search(r"\w*(_kernel|Kernel)|$", k).group() or k[:30]
-            whole[k] = round(whole.get(k, 0.0) + v, 4)
+        parts = {}
+        for name, fn in (("find_matches", lambda: FM.find_matches_packed(
+                x, K)), ("lz_parse", lambda: LP.lz_parse_packed(
+                    x, pm, vl, lazy)), ("tokenize", lambda: tokenize(
+                        x, vl, K, lazy))):
+            parts[name] = {}
+            for k, v in profiled_ms(fn, 3).items():
+                k = re.search(r"\w*(_kernel|Kernel)|$", k).group() or k[:30]
+                parts[name][k] = round(parts[name].get(k, 0.0) + v, 4)
         shown.append(
             f"{label} ({n} bytes, {w['visits']} candidates scored, "
-            f"{w['compared']} bytes compared): find_matches {show(fm)}; "
-            f"its call by kernel under the profiler, ms {whole}; "
-            f"lz_parse {show(lp)}")
+            f"{w['rescore_words']} rescore words, {ops} operations): "
+            f"find_matches (packed) {show(fm)}; lz_parse (packed) "
+            f"{show(lp)}; by kernel under the profiler, ms "
+            f"(find_matches: hash, CUB's sort of the 16-bit keys, links, "
+            f"walk; lz_parse: staging and runs to lazy in the match "
+            f"kernel, staging and parse in the parse kernel) {parts}")
+    x, vl, lazy, K = cases["4 MB shard 0"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tokenize(x, vl, K, lazy)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    shown.append(f"tokenize's peak device memory at 4 MB, above its input: "
+                 f"{peak:.1f} MiB")
     print(f"phase 14 LZ77 kernels: tolerance 0 (exact); find_matches (max "
           f"abs err {err['find_matches']}) and lz_parse (max abs err "
           f"{err['lz_parse']}) == their plain versions on {len(cases)} "
@@ -1735,7 +1769,7 @@ def lz77_phase(raw: bytes, cfg, dev) -> dict:
           f"\"error\"; {'; '.join(shown)}; no single PyTorch call computes "
           f"either function")
     torch.cuda.synchronize()
-    return {"max_abs_err": err, "times": times}
+    return {"max_abs_err": err, "times": times, "tokenize_peak_mib": peak}
 
 
 if __name__ == "__main__":

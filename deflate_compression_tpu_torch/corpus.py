@@ -124,7 +124,21 @@ def lz_case(name: str) -> tuple:
                   through all three extension rounds;
     short_valid   valid_len well under S; greedy  lazy=False;
     k1, k255      the bounds of K; s40000  S not a multiple of 32768;
-    s1, s2        S under 3."""
+    s1, s2        S under 3;
+    long_chains   one trigram every 16 bytes over 64 KB, the bytes after
+                  it differing inside 11: every chain there runs the full
+                  K (the walk's busiest lanes);
+    link_two_tiles  one hash in three consecutive 32 KB tiles: two
+                  occurrences in the first (the nearer after the farther),
+                  one 32768 after the nearer (a 35-byte match at that
+                  distance), one 32769 after that (no link, no match);
+    parse_subtile  across every 4 KB edge (the walk's tiles and lz_parse's
+                  sub-tiles), lazy on: a 600-byte segment from 200
+                  before each even edge, repeated, so a match chained to
+                  258 bytes crosses the edge (a 30-byte constant run
+                  inside it, 100 past the edge); a 250-byte constant run
+                  across each odd edge;
+    s36865        S a multiple of neither 4096 nor 32768."""
     rng = np.random.default_rng(len(name))
     W = C.WINDOW_SIZE
     if name == "tail_tie":
@@ -168,9 +182,41 @@ def lz_case(name: str) -> tuple:
     if name in ("s1", "s2"):
         n = int(name[1:])
         return np.frombuffer(b"aa"[:n], np.uint8).copy(), n, True, 32
+    if name == "long_chains":
+        S = 1 << 16
+        out = np.random.default_rng(9).integers(0, 256, S, dtype=np.uint8)
+        out.reshape(-1, 16)[:, :3] = [7, 11, 13]
+        return out, S, True, 32
+    if name == "link_two_tiles":
+        S = 100_000
+        tri = bytes(rng.integers(0, 256, 3, dtype=np.uint8))
+        near, far = (tri + bytes(rng.integers(0, 256, 40, dtype=np.uint8))
+                     for _ in range(2))
+        at = [30_000, 31_000, 31_000 + W, 31_000 + 2 * W + 1]
+        for seed in range(100):
+            d = _place(S, seed, {at[0]: far, at[1]: near, at[2]: near,
+                                 at[3]: near})
+            h = hash3_np(d)
+            if np.array_equal(np.flatnonzero(h == h[at[0]]), at):
+                return d, S, True, 32
+        raise AssertionError("no filler without a fifth same-hash position")
+    if name == "parse_subtile":
+        S, edge = 1 << 16, 4096
+        seg = rng.integers(0, 256, 600, dtype=np.uint8)
+        seg[300:330] = 0x55
+        out = np.random.default_rng(10).integers(0, 256, S, dtype=np.uint8)
+        for e in range(edge, S, edge):
+            if e // edge % 2:
+                out[e - 100:e + 150] = 0xAA
+            else:
+                out[e - 200:e + 400] = seg
+        return out, S, True, 32
+    if name == "s36865":
+        return sample("mixed", 36_865, seed=8), 36_865, True, 32
     raise ValueError(name)
 
 
 LZ_CASES = ["tail_tie", "collision_k1", "collision_k2", "dist_32768",
             "clamp_dist", "chain", "short_valid", "greedy", "k1", "k255",
-            "s40000", "s1", "s2"]
+            "s40000", "s1", "s2", "long_chains", "link_two_tiles",
+            "parse_subtile", "s36865"]

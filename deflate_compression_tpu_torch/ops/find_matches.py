@@ -9,16 +9,21 @@ scored on its leading equal bytes up to 11, the most winning and the
 nearest breaking ties; the winner rescored to 35 bytes; then length =
 min(that, 258, S - i), 0 under 3, and dist = i - j where length > 0.
 
-Both versions walk the hash chain: `prev[i]` is the nearest earlier
-position with i's hash, from one stable sort by hash, and the candidates of
-i are prev[i], prev[prev[i]], ... The kernels (`csrc/find_matches.cu`: the
-hash, then after torch's stable sort the links and the walk) are built at
-first use by `ops/cuda_build.py` and called through ctypes on PyTorch's
-current stream; the call waits for nothing on the device.
+Both versions walk the hash chain: `back[i]` is the distance to the
+nearest earlier position with i's hash (0 for none, or where it lies over
+32768 back), from one stable sort by hash, and the candidates of i are
+i - back[i], then that one's link, ... The kernels (`csrc/find_matches.cu`:
+the hash, CUB's stable radix sort of the 16-bit keys with int32
+positions, the links and the walk, one C call) are built at first use by
+`ops/cuda_build.py` and called through ctypes on PyTorch's current
+stream; the call waits for nothing on the device. The kernels write one
+int32 a position, length | dist << 16: `find_matches_packed` returns it
+as it is (what tokenize hands to lz_parse), `find_matches` unpacked into
+two int64 arrays.
 
-`find_matches` launches the kernels for a CUDA tensor and raises if it
-cannot; it takes the plain version `find_matches_ref` only for a tensor
-that lies on the CPU. `find_matches.launches` counts the calls that
+Both launch the kernels for a CUDA tensor and raise if they cannot; they
+take the plain version `find_matches_ref` only for a tensor that lies on
+the CPU. `find_matches.launches` counts the calls of either that
 launched.
 """
 from __future__ import annotations
@@ -40,19 +45,19 @@ PRESELECT = 11                  # bytes scored per candidate (2 words + 3)
 RESCORE = 35                    # bytes scored for the winner (8 words + 3)
 # int32 positions in the kernels, with a CTA's staged bytes past the end
 # (csrc/find_matches.cu: kStage)
-MAX_BYTES = 2**31 - 1 - (C.WINDOW_SIZE + 2048 + RESCORE + 8)
+MAX_BYTES = 2**31 - 1 - (C.WINDOW_SIZE + 4096 + RESCORE + 8)
 
 
 @functools.cache
 def _bind():
-    """The two launch functions, bound once, and the raw current-stream
-    lookup."""
+    """The launch function and the sort's scratch-size query, bound once,
+    and the raw current-stream lookup."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib = cuda_build.load(SOURCE, {
-        "find_matches_hash_launch": [vp, i64, vp, i32, vp],
-        "find_matches_walk_launch": [vp, i64, vp, vp, vp, i32, vp, vp, i32,
-                                     vp]})
-    return (lib.find_matches_hash_launch, lib.find_matches_walk_launch,
+        "find_matches_temp_bytes": [i64, ctypes.POINTER(ctypes.c_int64)],
+        "find_matches_launch": [vp, i64, vp, vp, vp, vp, vp, i64, vp, i32,
+                                vp, i32, vp]})
+    return (lib.find_matches_launch, lib.find_matches_temp_bytes,
             cuda_build.raw_stream())
 
 
@@ -78,16 +83,18 @@ def _hash3(data: torch.Tensor) -> torch.Tensor:
     return mul32(d | (d1 << 8) | (d2 << 16), HASH_MUL) >> (32 - HASH_BITS)
 
 
-def _hash_chain(h: torch.Tensor) -> torch.Tensor:
-    """prev[i]: the nearest earlier position with hash h[i] within the
-    window, else -1 (a link past the window is past every later position's
-    window too)."""
+def _back_links(h: torch.Tensor) -> torch.Tensor:
+    """back[i]: i minus the nearest earlier position with hash h[i] if that
+    lies within the window, else 0 (a link past the window is past every
+    later position's window too): the kernels' 16-bit links, from one
+    stable sort by hash."""
     order = torch.argsort(h, stable=True)
     hs = h[order]
-    link = (hs[1:] == hs[:-1]) & (order[1:] - order[:-1] <= C.WINDOW_SIZE)
-    prev = torch.full_like(order, -1)
-    prev[order[1:]] = torch.where(link, order[:-1], -1)
-    return prev
+    d = order[1:] - order[:-1]
+    back = torch.zeros_like(order)
+    back[order[1:]] = torch.where((hs[1:] == hs[:-1]) & (d <= C.WINDOW_SIZE),
+                                  d, 0)
+    return back
 
 
 def _tail_bytes(diff: torch.Tensor) -> torch.Tensor:
@@ -120,22 +127,23 @@ def _leading_equal(w4: torch.Tensor, at: torch.Tensor, cand: torch.Tensor,
 def find_matches_ref(data: torch.Tensor, num_candidates: int = 32,
                      stats: dict | None = None):
     """Plain PyTorch version of the kernels, the same chain walk: K rounds
-    of `cand = prev[cand]` with the bytes compared in place. Arguments and
-    result as for `find_matches`; `stats`, if given, receives the walk's
-    work as the kernel does it: `visits` (candidates scored, a chain left
-    once a candidate reaches 11 bytes) and `compared` (bytes compared,
-    preselect and rescore)."""
+    of `cand = cand - back[cand]` with the bytes compared in place.
+    Arguments and result as for `find_matches`; `stats`, if given, receives
+    the walk's work: `visits` (candidates scored, a chain left once a
+    candidate reaches 11 bytes) and `rescore_words` (the 4-byte compares
+    that take the 11-byte winners on toward 35 bytes)."""
     S = data.shape[0]
     dev = data.device
     pos = torch.arange(S, device=dev)
     d = torch.cat([data.long(), torch.zeros(RESCORE + 8, dtype=torch.int64,
                                             device=dev)])
     w4 = d[:-3] | (d[1:-2] << 8) | (d[2:-1] << 16) | (d[3:] << 24)
-    prev = _hash_chain(_hash3(data))
+    back = _back_links(_hash3(data))
+    prev = torch.where(back > 0, pos - back, -1)
 
     best = torch.full((S,), -1, dtype=torch.int64, device=dev)
     best_nb = torch.full_like(best, -1)
-    visits = compared = 0
+    visits = 0
     # the walk, round k on the positions whose chain is still open; none
     # beats a candidate of 11 bytes, so its chain closes there
     at, cand = pos, prev
@@ -150,22 +158,65 @@ def find_matches_ref(data: torch.Tensor, num_candidates: int = 32,
         best[at[win]] = cand[win]
         best_nb[at[win]] = nb[win]
         cand = prev[cand]
-        if stats is not None:
-            visits += at.numel()
-            compared += int((nb + 1).clamp(max=PRESELECT).sum())
+        visits += at.numel()
 
     valid = best >= 0
     bc = best.clamp(min=0)
     length = _leading_equal(w4, pos, bc, RESCORE).clamp(max=C.MAX_MATCH)
     if stats is not None:
-        full = best_nb == PRESELECT
+        # a word from byte 11 on, until one differs or 35 are equal
+        run = length[best_nb == PRESELECT]
         stats["visits"] = visits
-        stats["compared"] = compared + int(
-            ((length[full] + 1).clamp(max=RESCORE) - PRESELECT).sum())
+        stats["rescore_words"] = int(
+            ((run - PRESELECT) // 4 + 1).clamp(max=6).sum())
     length = torch.minimum(length, S - pos)      # padding equality is fake
     length = torch.where(valid & (length >= C.MIN_MATCH), length, 0)
     dist = torch.where(length > 0, pos - bc, 0)
     return length, dist
+
+
+def pack(length: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """The hand-off of find_matches to lz_parse: int32 length | dist << 16
+    (dist 32768 sets the sign bit), both in [0, 65535]; written as the two
+    16-bit halves of each word."""
+    out = torch.empty((length.shape[0], 2), dtype=torch.int16,
+                      device=length.device)
+    out[:, 0] = length                           # low half, little-endian
+    out[:, 1] = dist
+    return out.view(torch.int32).view(-1)
+
+
+def unpack(packed: torch.Tensor):
+    """(length, dist) int64 of a packed hand-off."""
+    half = packed.view(torch.int16).view(-1, 2)
+    return (half[:, 0].long().bitwise_and_(0xFFFF),
+            half[:, 1].long().bitwise_and_(0xFFFF))
+
+
+def _launch(data: torch.Tensor, num_candidates: int) -> torch.Tensor:
+    """The kernels on a CUDA tensor: the packed int32 result."""
+    dev = data.device
+    S = data.shape[0]
+    out = torch.empty(S, dtype=torch.int32, device=dev)
+    if S == 0:
+        return out
+    launch, temp_bytes, stream = _bind()
+    n = ctypes.c_int64()
+    rc = temp_bytes(S, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"find_matches sort size failed: cudaError {rc}")
+    keys = torch.empty((2, S), dtype=torch.int16, device=dev)
+    pos = torch.empty((2, S), dtype=torch.int32, device=dev)
+    temp = torch.empty(max(n.value, 1), dtype=torch.uint8, device=dev)
+    back = torch.empty(-(-S // 8) * 8, dtype=torch.int16, device=dev)
+    rc = launch(data.data_ptr(), S, keys[0].data_ptr(), keys[1].data_ptr(),
+                pos[0].data_ptr(), pos[1].data_ptr(), temp.data_ptr(),
+                n.value, back.data_ptr(), num_candidates, out.data_ptr(),
+                dev.index, stream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"find_matches launch failed: cudaError {rc}")
+    find_matches.launches += 1
+    return out
 
 
 def find_matches(data: torch.Tensor, num_candidates: int = 32):
@@ -180,26 +231,21 @@ def find_matches(data: torch.Tensor, num_candidates: int = 32):
         return find_matches_ref(data, num_candidates)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    S = data.shape[0]
-    length = torch.empty(S, dtype=torch.int64, device=dev)
-    dist = torch.empty_like(length)
-    if S == 0:
-        return length, dist
-    hash_launch, walk_launch, stream = _bind()
-    h = torch.empty(S, dtype=torch.int32, device=dev)
-    rc = hash_launch(data.data_ptr(), S, h.data_ptr(), dev.index,
-                     stream(dev.index))
-    if rc != 0:
-        raise RuntimeError(f"find_matches hash launch failed: cudaError {rc}")
-    hs, order = torch.sort(h, stable=True)
-    prev = torch.empty(S, dtype=torch.int32, device=dev)
-    rc = walk_launch(data.data_ptr(), S, hs.data_ptr(), order.data_ptr(),
-                     prev.data_ptr(), num_candidates, length.data_ptr(),
-                     dist.data_ptr(), dev.index, stream(dev.index))
-    if rc != 0:
-        raise RuntimeError(f"find_matches launch failed: cudaError {rc}")
-    find_matches.launches += 1
-    return length, dist
+    return unpack(_launch(data, num_candidates))
+
+
+def find_matches_packed(data: torch.Tensor, num_candidates: int = 32):
+    """find_matches' result as one int32[S], `pack(length, dist)`: what
+    tokenize hands to lz_parse (4 bytes a position written, not 16). A
+    CUDA tensor goes through the CUDA kernels (or this raises); a CPU
+    tensor through `find_matches_ref`."""
+    _check(data, num_candidates)
+    dev = data.device
+    if dev.type == "cpu":
+        return pack(*find_matches_ref(data, num_candidates))
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _launch(data, num_candidates)
 
 
 find_matches.launches = 0

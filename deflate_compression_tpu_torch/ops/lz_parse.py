@@ -10,13 +10,17 @@ tile boundaries, two-step lazy matching demotes a match that a longer one
 follows, and the greedy parse marks the token starts: the orbit of 0 under
 next[i] = i + max(length[i], 1).
 
-The kernel (`csrc/lz_parse.cu`, one CTA per 32 KB tile) is built at first
-use by `ops/cuda_build.py` and called through ctypes on PyTorch's current
-stream; the call waits for nothing on the device.
+The kernels (`csrc/lz_parse.cu`: one CTA per 4 KB sub-tile for runs,
+chains, clamps and lazy, then one per 32 KB tile for the parse) are built
+at first use by `ops/cuda_build.py` and called through ctypes on PyTorch's
+current stream; the call waits for nothing on the device. The kernels read
+find_matches' result packed as one int32 a position: `lz_parse_packed`
+takes it so (`find_matches_packed`, what tokenize hands over), `lz_parse`
+packs the int64 pair first.
 
-`lz_parse` launches the kernel for CUDA tensors and raises if it cannot; it
-takes the plain version `lz_parse_ref` only for tensors that lie on the
-CPU. `lz_parse.launches` counts kernel launches.
+Both launch the kernels for CUDA tensors and raise if they cannot; they
+take the plain version `lz_parse_ref` only for tensors that lie on the
+CPU. `lz_parse.launches` counts the calls of either that launched.
 """
 from __future__ import annotations
 
@@ -29,18 +33,20 @@ import torch
 from ..core import scans
 from ..format import constants as C
 from . import cuda_build
+from .find_matches import pack, unpack
 
 SOURCE = cuda_build.CSRC / "lz_parse.cu"
-TILE = C.WINDOW_SIZE                            # one CTA per tile
+TILE = C.WINDOW_SIZE                            # one parse CTA per tile
+PADDED_TILE = TILE + 2 * (TILE // 64)           # token lengths, chunk-padded
 
 
 @functools.cache
 def _bind():
-    """The kernel's launch function, bound once, and the raw current-stream
+    """The kernels' launch function, bound once, and the raw current-stream
     lookup."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib = cuda_build.load(SOURCE, {"lz_parse_launch": [
-        vp, vp, vp, i64, i64, i32, vp, vp, vp, i32, vp]})
+        vp, vp, i64, i64, i32, vp, vp, vp, vp, i32, vp]})
     return lib.lz_parse_launch, cuda_build.raw_stream()
 
 
@@ -122,23 +128,50 @@ def lz_parse_ref(data: torch.Tensor, length: torch.Tensor,
     return {"chosen": chosen, "length": length, "dist": dist}
 
 
-def _check(data, length, dist) -> None:
-    if not all(isinstance(x, torch.Tensor) for x in (data, length, dist)):
-        raise TypeError("data, length and dist must be torch.Tensors")
+def _check(data, **matches) -> None:
+    """data u8[S], and each of `matches` (name: (tensor, dtype)) of that
+    dtype and shape, on data's device; all contiguous."""
+    if not isinstance(data, torch.Tensor) or not all(
+            isinstance(x, torch.Tensor) for x, _ in matches.values()):
+        raise TypeError(f"data, {', '.join(matches)} must be torch.Tensors")
     if data.dtype != torch.uint8 or data.dim() != 1:
         raise ValueError(f"data must be u8[S], got {data.dtype} "
                          f"{tuple(data.shape)}")
-    for name, x in (("length", length), ("dist", dist)):
-        if x.dtype != torch.int64 or x.shape != data.shape:
-            raise ValueError(f"{name} must be int64[{data.shape[0]}]")
+    for name, (x, dtype) in matches.items():
+        if x.dtype != dtype or x.shape != data.shape:
+            raise ValueError(f"{name} must be {dtype}[{data.shape[0]}]")
         if x.device != data.device:
             raise ValueError(f"{name} is on {x.device}, data on "
                              f"{data.device}")
-    if not (data.is_contiguous() and length.is_contiguous()
-            and dist.is_contiguous()):
-        raise ValueError("data, length and dist must be contiguous")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
     if data.shape[0] > 2**31 - 1:
         raise ValueError("data longer than 2^31 - 1 bytes")
+
+
+def _launch(data: torch.Tensor, packed: torch.Tensor, valid_len: int,
+            lazy: bool) -> dict:
+    """Both kernels on CUDA tensors."""
+    dev = data.device
+    S = data.shape[0]
+    out = {"chosen": torch.empty(S, dtype=torch.bool, device=dev),
+           "length": torch.empty(S, dtype=torch.int64, device=dev),
+           "dist": torch.empty(S, dtype=torch.int64, device=dev)}
+    if S == 0:
+        return out
+    launch, stream = _bind()
+    tok_len = torch.empty(-(-S // TILE) * PADDED_TILE, dtype=torch.int16,
+                          device=dev)
+    rc = launch(data.data_ptr(), packed.data_ptr(), S, valid_len,
+                int(bool(lazy)), out["chosen"].data_ptr(),
+                out["length"].data_ptr(), out["dist"].data_ptr(),
+                tok_len.data_ptr(), dev.index, stream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"lz_parse launch failed: cudaError {rc}")
+    lz_parse.launches += 1
+    return out
 
 
 def lz_parse(data: torch.Tensor, length: torch.Tensor, dist: torch.Tensor,
@@ -151,30 +184,30 @@ def lz_parse(data: torch.Tensor, length: torch.Tensor, dist: torch.Tensor,
     distances in [0, 32768]). Returns a dict of per-position tensors:
     chosen (bool, a token starts here), length and dist (int64, 0 for a
     literal; dist stays where a clamp cut a match below 3 bytes). Padding
-    positions are never chosen. A CUDA tensor goes through the CUDA kernel
+    positions are never chosen. A CUDA tensor goes through the CUDA kernels
     (or this raises); a CPU tensor through `lz_parse_ref`."""
-    _check(data, length, dist)
+    _check(data, length=(length, torch.int64), dist=(dist, torch.int64))
     valid_len = int(valid_len)
     dev = data.device
     if dev.type == "cpu":
         return lz_parse_ref(data, length, dist, valid_len, lazy)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    S = data.shape[0]
-    out = {"chosen": torch.empty(S, dtype=torch.bool, device=dev),
-           "length": torch.empty(S, dtype=torch.int64, device=dev),
-           "dist": torch.empty(S, dtype=torch.int64, device=dev)}
-    if S == 0:
-        return out
-    launch, stream = _bind()
-    rc = launch(data.data_ptr(), length.data_ptr(), dist.data_ptr(), S,
-                valid_len, int(bool(lazy)), out["chosen"].data_ptr(),
-                out["length"].data_ptr(), out["dist"].data_ptr(), dev.index,
-                stream(dev.index))
-    if rc != 0:
-        raise RuntimeError(f"lz_parse launch failed: cudaError {rc}")
-    lz_parse.launches += 1
-    return out
+    return _launch(data, pack(length, dist), valid_len, lazy)
+
+
+def lz_parse_packed(data: torch.Tensor, packed: torch.Tensor,
+                    valid_len: int, lazy: bool = True):
+    """`lz_parse` from find_matches' packed result (int32[S], length |
+    dist << 16, as `find_matches_packed` gives it): the same dict."""
+    _check(data, packed=(packed, torch.int32))
+    valid_len = int(valid_len)
+    dev = data.device
+    if dev.type == "cpu":
+        return lz_parse_ref(data, *unpack(packed), valid_len, lazy)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _launch(data, packed, valid_len, lazy)
 
 
 lz_parse.launches = 0

@@ -5,9 +5,10 @@
 
 Prints host-clock times (each ending in torch.cuda.synchronize()) of the
 whole encode_shard and of some of its stages run alone on inputs of the
-main-path shapes (tokenize is the find_matches and lz_parse kernels; their
-plain versions, which the card never runs on the encode path, are timed
-beside them as context), each with the device memory its call allocated
+main-path shapes (tokenize is the find_matches and lz_parse kernels with
+the packed hand-off, timed alone beside their int64 calls; their plain
+versions, which the card never runs on the encode path, are timed beside
+them as context), each with the device memory its call allocated
 at its peak, then the torch.profiler table of device time by operator over
 N encodes, and the device busy share of that window. Needs a CUDA card.
 """
@@ -56,6 +57,7 @@ def main() -> None:
     x = shards[0]
     nb = shard // 32768
     lens, dists = lz77.find_matches(x)
+    packed = lz77.find_matches_packed(x)
     tok_len = torch.where(lens >= 3, lens, 1)
     sym = torch.where(lens >= 3, 257 + lens % 29, x.long()).view(nb, -1)
     ll = huffman.histogram_rows(sym, 286)
@@ -66,6 +68,8 @@ def main() -> None:
         "tokenize": lambda: lz77.tokenize(x, shard),
         "find_matches": lambda: lz77.find_matches(x),
         "lz_parse": lambda: lz77.lz_parse(x, lens, dists, shard),
+        "find_matches pack": lambda: lz77.find_matches_packed(x),
+        "lz_parse packed": lambda: lz77.lz_parse_packed(x, packed, shard),
         "plain find_matches": lambda: lz77.find_matches_ref(x),
         "plain lz_parse": lambda: lz77.lz_parse_ref(x, lens, dists, shard),
         "greedy_parse": lambda: lz77.greedy_parse(tok_len),

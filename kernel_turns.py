@@ -19,7 +19,15 @@ ops/timing.py` (loaded by path, so every tree is timed alike):
     corpus: ms per call, queued device ms where the call lets the device
     run ahead, and the kernel's profiler ms;
   * encode MB/s (second `ZlibCodec.compress`), ratio, and verified-decode
-    MB/s (one flat `decode_blocks_batch` plus adler32 per shard).
+    MB/s (one flat `decode_blocks_batch` plus adler32 per shard);
+  * the encoder's LZ77 kernels at a 1 MB and a 4 MB shard of
+    `corpus.build_corpus`: `find_matches` and `lz_parse` (the int64 calls
+    every tree has), device ms per call (20 calls queued behind a spin
+    kernel) and profiler ms by kernel name, `tokenize`'s host ms per call
+    (median of 10, each ended by a synchronize), torch's stable sort of
+    the shard's hash keys as int32 and as int16 (device ms); and, where
+    the tree has them, the same for the packed calls tokenize makes
+    (`find_matches_packed`, `lz_parse_packed`).
 
 Every process prints one JSON line; the first process prints them all and,
 given `--out FILE`, writes them there as one JSON list. Needs a CUDA card.
@@ -140,7 +148,68 @@ def child(tree: Path) -> dict:
     verified()
     torch.cuda.synchronize()
     res["verified_decode_mb_s"] = len(raw) / (time.perf_counter() - t0) / 1e6
+    res["lz77"] = lz77_times(T, dev)
     return res
+
+
+def lz77_times(T, dev) -> dict:
+    """The LZ77 block of a tree's line (see the module's docstring)."""
+    import re
+
+    import numpy as np
+    import torch
+    from deflate_compression_tpu_torch.core import lz77
+    from deflate_compression_tpu_torch.corpus import build_corpus
+    from deflate_compression_tpu_torch.ops import find_matches as FM
+    from deflate_compression_tpu_torch.ops import lz_parse as LP
+
+    def queued(fn):
+        return T.device_ms(fn, 20)[0]
+
+    def by_name(fn):
+        out = {}
+        for k, v in T.profiled_ms(fn, 5).items():
+            k = re.search(r"\w*(_kernel|Kernel)|$", k).group() or k[:30]
+            out[k] = out.get(k, 0.0) + v
+        return out
+
+    def host_ms(fn):
+        times = []
+        for _ in range(11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[1:]))
+
+    packed = hasattr(FM, "find_matches_packed")
+    out = {}
+    for label, n in (("1mb", 1 << 20), ("4mb", 4 << 20)):
+        x = torch.from_numpy(np.frombuffer(build_corpus(n), np.uint8).copy()
+                             ).to(dev)
+        m = FM.find_matches(x, 32)
+        fm = lambda: FM.find_matches(x, 32)  # noqa: E731
+        lp = lambda: LP.lz_parse(x, *m, n, True)  # noqa: E731
+        r = {"find_matches_ms": queued(fm), "find_matches_prof": by_name(fm),
+             "lz_parse_ms": queued(lp), "lz_parse_prof": by_name(lp),
+             "tokenize_host_ms": host_ms(lambda: lz77.tokenize(x, n))}
+        d = x.long()
+        h = ((d[:-2] | d[1:-1] << 8 | d[2:] << 16) * 2654435761
+             & 0xFFFFFFFF) >> 16
+        h32, h16 = h.int(), h.to(torch.int16)
+        r["sort_int32_ms"] = queued(lambda: torch.sort(h32, stable=True))
+        r["sort_int16_ms"] = queued(lambda: torch.sort(h16, stable=True))
+        if packed:
+            pm = FM.find_matches_packed(x, 32)
+            fmp = lambda: FM.find_matches_packed(x, 32)  # noqa: E731
+            lpp = lambda: LP.lz_parse_packed(x, pm, n, True)  # noqa: E731
+            r["find_matches_packed_ms"] = queued(fmp)
+            r["find_matches_packed_prof"] = by_name(fmp)
+            r["lz_parse_packed_ms"] = queued(lpp)
+            r["lz_parse_packed_prof"] = by_name(lpp)
+        out[label] = r
+    return out
 
 
 def main(argv) -> int:

@@ -824,6 +824,47 @@ def test_lz77_kernels_match_plain_on_corpus_kinds(cuda, kind, size):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["long_chains", "parse_subtile", "s36865",
+                                  "clamp_dist"])
+def test_lz77_packed_hand_off_matches_plain(cuda, name):
+    """find_matches_packed and lz_parse_packed (tokenize's path) against
+    the plain versions: the packed matches equal pack(find_matches_ref),
+    and the parse from them equals lz_parse_ref."""
+    data, vl, lazy, k = corpus.lz_case(name)
+    x = torch.from_numpy(data).to(cuda)
+    before = (FM.find_matches.launches, LP.lz_parse.launches)
+    packed = FM.find_matches_packed(x, k)
+    got = LP.lz_parse_packed(x, packed, vl, lazy)
+    torch.cuda.synchronize()
+    assert (FM.find_matches.launches, LP.lz_parse.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_m = FM.find_matches_ref(x, k)
+    assert torch.equal(packed, FM.pack(*want_m))
+    want = LP.lz_parse_ref(x, *want_m, vl, lazy)
+    for key in ("chosen", "length", "dist"):
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [1, 3, 8])
+def test_lz77_kernels_unaligned_views(cuda, skip):
+    """Views that start off a 16-byte boundary take the kernels' scalar
+    staging: the same results, for the bytes and for the packed hand-off
+    (a view 4 bytes past a boundary)."""
+    base = torch.from_numpy(corpus.sample("mixed", 70_000 + skip,
+                                          seed=skip)).to(cuda)
+    x = base[skip:]
+    length, dist = _same_matches(x, 32)
+    _same_parse(x, length, dist, 65_000, True)
+    buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda)
+    buf[1:] = FM.pack(length, dist)
+    got = LP.lz_parse_packed(x, buf[1:], 65_000, True)
+    want = LP.lz_parse_ref(x, length, dist, 65_000, True)
+    for key in ("chosen", "length", "dist"):
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.cuda
 def test_tokenize_launches_each_kernel_once(cuda):
     x = torch.from_numpy(corpus.sample("mixed", 1 << 17, seed=8)).to(cuda)
     before = (FM.find_matches.launches, LP.lz_parse.launches)

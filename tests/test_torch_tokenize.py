@@ -199,3 +199,85 @@ def test_find_matches_ref_matches_the_rules(kind):
     wl, wd = _walk_rules(data, 8)
     _equal(gl, wl, "length")
     _equal(gd, wd, "dist")
+
+
+def _nearest_earlier(h: np.ndarray) -> np.ndarray:
+    """back[i] by a direct scan: i minus the last earlier position of hash
+    h[i], 0 where there is none or it lies over 32768 back."""
+    last, back = {}, np.zeros(h.shape[0], np.int64)
+    for i, x in enumerate(h.tolist()):
+        j = last.get(x)
+        if j is not None and i - j <= WINDOW:
+            back[i] = i - j
+        last[x] = i
+    return back
+
+
+@pytest.mark.parametrize("name", ["link_two_tiles", "long_chains",
+                                  "dist_32768", "collision_k2", "s36865"])
+def test_back_links_match_a_direct_scan(name):
+    """The 16-bit links the kernels stage (`_back_links`) equal the nearest
+    earlier same-hash position within the window, found by a scan."""
+    data = lz_case(name)[0]
+    got = FM._back_links(FM._hash3(torch.from_numpy(data)))
+    _equal(got, _nearest_earlier(hash3_np(data)))
+    assert int(got.max()) <= WINDOW
+
+
+@pytest.mark.parametrize("kind", ["mixed", "zeros"])
+def test_packed_hand_off_equals_the_int64_pair(kind):
+    """find_matches_packed is pack(find_matches), unpack inverts it (dist
+    32768 included), and lz_parse_packed equals lz_parse."""
+    data = torch.from_numpy(corpus.sample(kind, 1 << 16, seed=14))
+    length, dist = FM.find_matches(data, 32)
+    packed = FM.find_matches_packed(data, 32)
+    assert packed.dtype == torch.int32
+    _equal(packed, FM.pack(length, dist).numpy())
+    for g, w in zip(FM.unpack(packed), (length, dist)):
+        _equal(g, w.numpy())
+    edge = FM.pack(torch.tensor([258, 35]), torch.tensor([32768, 1]))
+    assert [t.tolist() for t in FM.unpack(edge)] == [[258, 35], [32768, 1]]
+    got = LP.lz_parse_packed(data, packed, 60_000)
+    want = LP.lz_parse(data, length, dist, 60_000)
+    for key in ("chosen", "length", "dist"):
+        _equal(got[key], want[key].numpy(), key)
+
+
+def test_edge_case_link_two_tiles():
+    """A link of exactly 32768 to the nearer of two same-hash positions in
+    the tile before is taken (a 35-byte match); one of 32769 is not."""
+    data, length, dist, _ = _matches("link_two_tiles")
+    at = [30_000, 31_000, 31_000 + WINDOW, 31_000 + 2 * WINDOW + 1]
+    assert np.array_equal(np.flatnonzero(hash3_np(data) == hash3_np(data)[
+        at[0]]), at)
+    assert (length[at[2]], dist[at[2]]) == (35, WINDOW)
+    assert (length[at[3]], dist[at[3]]) == (0, 0)
+
+
+def test_edge_case_long_chains_run_the_full_k():
+    """Every trigram position with 32 predecessors scores all 32 (none
+    reaches 11 bytes) and keeps a match among them: 3 bytes or a few more,
+    at most 32 * 16 back."""
+    data, vl, lazy, k = lz_case("long_chains")
+    stats = {}
+    length, dist = FM.find_matches_ref(torch.from_numpy(data), k, stats)
+    busy = np.arange(16 * k, data.shape[0], 16)
+    assert stats["visits"] >= k * busy.shape[0]
+    ln, ds = length.numpy()[busy], dist.numpy()[busy]
+    assert ((ln >= 3) & (ln < 11)).all() and (ln == 3).mean() > 0.8
+    assert ((ds % 16 == 0) & (ds >= 16) & (ds <= 16 * k)).all()
+
+
+def test_edge_case_parse_subtile_tokens_cross_the_edges():
+    """A 258-byte token crosses every even 4 KB edge that has an earlier
+    copy (a 32 KB tile edge cuts its token there), and a constant run
+    token crosses every odd edge."""
+    _, _, _, tok = _matches("parse_subtile")
+    ln, ds = tok["length"].numpy(), tok["dist"].numpy()
+    starts = np.flatnonzero(tok["chosen"].numpy())
+    for e in range(4096, 1 << 16, 4096):
+        over = [s for s in starts if s < e < s + ln[s]]
+        if e // 4096 % 2:
+            assert [ds[s] for s in over] == [1], e
+        elif e % WINDOW and e >= 16384:
+            assert [(ln[s], ds[s]) for s in over] == [(258, 8192)], e
