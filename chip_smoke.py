@@ -99,8 +99,9 @@ build_tables and copy_sources carry `ms_4mb`,
 `bound_ms_4mb` and `share_of_bound_4mb` on phase 10's batch, and
 `call_ms_4mb` and `plain_call_ms_4mb`, one call each there by CUDA events,
 and copy_sources `bound_with_gathers_ms`, its bound with the pointer
-rounds' gathers added. The last line is the JSON result
-{"ok": true, "device": {...}}.
+rounds' gathers added, `rounds_run` (the gather rounds the kernels ran on
+phase 7's batch; `rounds_run_4mb` on phase 10's) and `plain_rounds`. The
+last line is the JSON result {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -378,6 +379,8 @@ def main() -> int:
                                            / large["device_ms"][name])
             paths["call_ms_4mb"] = large["phases"][phase + "_kernel"]
             paths["plain_call_ms_4mb"] = large["phases"][phase + "_plain"]
+        if name == "copy_sources":
+            paths["rounds_run_4mb"] = large["rounds_run"]
         return paths
 
     print(json.dumps({"kernels": [{
@@ -818,9 +821,16 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
                    lambda: CS.resolve_bytes_ref(*c_args), 20, 3, cs_bytes,
                    reps=5, plain_n=3)
     cs_t["bound_with_gathers_ms"] = bound_ms(cs_bytes + gather_bytes)
+    k_stats = {}
+    CS.resolve_bytes(*c_args, stats=k_stats)
+    cs_t["rounds_run"] = k_stats["rounds"]
+    cs_t["plain_rounds"] = len(cs_stats["tagged"])
     print(f"phase 7 copy_sources: tolerance 0 (exact); bytes, bad_dist and "
           f"unconverged == plain on {nsh * S} positions ({cs_bytes} bytes to "
-          f"move; the plain version ran {len(cs_stats['tagged'])} rounds over "
+          f"move; the kernels ran {k_stats['rounds']} gather rounds after "
+          f"the pointers inside each tile resolved there, of a bound of "
+          f"{CS.max_rounds(nsh * S)}; the plain version ran "
+          f"{len(cs_stats['tagged'])} rounds over "
           f"{cs_stats['tagged']} open pointers, {gather_bytes} bytes of "
           f"gathers, bound with them {cs_t['bound_with_gathers_ms']:.5f} "
           f"ms; {cs_stats['stored_bytes']} stored bytes); the wrapper ran "
@@ -1034,7 +1044,9 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
              "launches": flat_launches["copy_sources"],
              "launches_indexed": idx_launches["copy_sources"],
              "max_abs_err": cs_err, **entry(cs_t), "library_ms": None,
-             "bound_with_gathers_ms": cs_t["bound_with_gathers_ms"]},
+             "bound_with_gathers_ms": cs_t["bound_with_gathers_ms"],
+             "rounds_run": cs_t["rounds_run"],
+             "plain_rounds": cs_t["plain_rounds"]},
             {"name": "decode_symbols", "route": "cuda",
              "source": "deflate_compression_tpu_torch/csrc/decode_symbols.cu",
              "replaces": "tools/probe_pallas_r5.py:35",
@@ -1112,8 +1124,9 @@ def large_shard_phase(dev, mbs_1mb: float) -> dict:
                   "build_tables, 4 MB-shard flat batch")
     cs_stats = {}
     c_want = CS.resolve_bytes_ref(*c_args, stats=cs_stats)
-    cs_err = same(leaves(CS.resolve_bytes(*c_args)), leaves(c_want),
-                  "copy_sources, 4 MB-shard flat batch")
+    k_stats = {}
+    cs_err = same(leaves(CS.resolve_bytes(*c_args, stats=k_stats)),
+                  leaves(c_want), "copy_sources, 4 MB-shard flat batch")
     # device ms per launch of both kernels at this batch, beside the bound
     NB = pf.blk_bit.numel()
     bt_bytes = build_tables_bytes(a_want, pf.blk_bit, flat["blk_btype"])[0]
@@ -1156,16 +1169,18 @@ def large_shard_phase(dev, mbs_1mb: float) -> dict:
           f"{dev_ms['build_tables']:.4f} ({NB} block slots, {bt_bytes} "
           f"bytes, bound {bounds['build_tables']:.5f} ms), copy_sources "
           f"{dev_ms['copy_sources']:.4f} ({cs_bytes} bytes, bound "
-          f"{bounds['copy_sources']:.5f} ms; the plain version's rounds "
-          f"gathered {gather_bytes} bytes over {cs_stats['tagged']} open "
-          f"pointers); "
+          f"{bounds['copy_sources']:.5f} ms; the kernels ran "
+          f"{k_stats['rounds']} gather rounds, the plain version's "
+          f"{len(cs_stats['tagged'])} rounds gathered {gather_bytes} bytes "
+          f"over {cs_stats['tagged']} open pointers); "
           f"decompress_indexed with the encoder's index ({index.n_subs} "
           f"entries, groups of {S} bytes) {len(raw) / t_idx / 1e6:.3f} MB/s")
     torch.cuda.synchronize()
     return {**launches,
             **{k: enc_launches[k] for k in ("tile_histogram",
                                             *ENCODE_KERNELS)},
-            "phases": ph, "device_ms": dev_ms, "bound_ms": bounds}
+            "phases": ph, "device_ms": dev_ms, "bound_ms": bounds,
+            "rounds_run": k_stats["rounds"]}
 
 
 def png_bytes(px: np.ndarray) -> bytes:

@@ -22,23 +22,44 @@
 //
 // What bounds it on this card. Per block slot it reads at most 600 bytes of
 // stream and writes 17.8 KB of tables: 1,024 slots are 18 MB, 5.5 us at
-// 3.35 TB/s. The RLE walk is a serial chain (bits -> code-length LUT ->
-// extra bits -> next bit position) of up to 316 steps per block, so the
-// latency of one step, not the bytes, sets the time of a CTA.
+// 3.35 TB/s. All slots run at once, so the latency of one CTA sets the time,
+// and in that CTA the code-length walk is a chain of up to 316 dependent
+// steps (bits -> code-length LUT -> extra bits -> next bit position). Walked
+// by one thread with its decode in every step (the first design), that chain
+// was most of the kernel.
 //
 // What the design does about it:
 //  * One CTA per block slot, 320 threads: one per symbol of the two
-//    alphabets (288 litlen, 32 dist). All slots run at once; nothing waits
-//    for the host (the plain version asks the device every 8 steps whether
-//    any block is still active).
-//  * The header's words are staged in shared memory by the whole CTA, then
-//    thread 0 walks the RLE stream out of shared memory, so a step costs
-//    shared-memory latency and not a trip to L2.
+//    alphabets (288 litlen, 32 dist). Nothing waits for the host (the plain
+//    version asks the device every 8 steps whether any block is still
+//    active).
+//  * The header's words are staged in shared memory by the whole CTA; bit
+//    positions are 32-bit offsets from the first staged word (word indices
+//    still clipped to the array; a word past the window is read from device
+//    memory).
+//  * The 19 code-length lengths are read by 19 threads, the code-length
+//    code's canonical codes by 19 and its 128-entry LUT by 128 threads.
+//  * Every thread decodes the code-length symbol at 7 of the 2,240 bit
+//    offsets a walk can reach (a step takes at most 7 bits per length it
+//    adds): its next offset, repeat count and symbol, one word in shared
+//    memory. The chain left, the path of offsets from the first RLE bit, is
+//    found by pointer doubling over the next offsets: 9 rounds of the whole
+//    CTA (thread 0 following the chain, one shared-memory load a step, took
+//    up to 1.4x the time of the kernel).
+//  * Then one thread per step: a CTA scan of the repeat counts places each
+//    step, a scan of the last fill that is not a repeat (16) gives each
+//    step's previous length, a min-reduce finds the last step (the one that
+//    completes the lengths or reads no code) and another the first step that
+//    goes bad; the state freezes after it, and every thread writes one of
+//    the 316 lengths from the step that covers it (a binary search over
+//    the steps' ends).
 //  * Ranks within a length come from __match_any_sync and per-warp counts,
 //    canonical codes and the canonical order from those ranks; every warp
 //    fills the LUT in shared memory for its own 32 symbols (a code of
 //    length L adds its payload to 2^(11-L) strided entries, the lanes
 //    striding over them); the tables leave shared memory in 16-byte stores.
+//    The LUT shares its shared memory with the walk's decode, which is done
+//    by then.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,7 +79,21 @@ constexpr int kClenBits = 7;
 constexpr int kThreads = kNumLitlen + kNumDist;   // 320: one per symbol
 constexpr int kWarps = kThreads / 32;             // 9 litlen warps + 1 dist
 constexpr int kStage = 152;               // words staged: the longest header
+// A step takes at most 7 bits per length it adds (a 7-bit code and 1
+// length, or 7 + 7 bits and 11 or more), so a step that starts before the
+// lengths are complete starts at most 7 x 315 bits after the first RLE bit.
+constexpr int kBitsPerLength = 7;
+constexpr int kSpan = kRleSteps * kBitsPerLength;   // 2,240 offsets
+constexpr int kPerThread = kSpan / kThreads;        // 7
+constexpr int kNextMask = (1 << 13) - 1;  // s_dec: next offset, bits 0-12
+constexpr int kRelLimit = 1 << 24;        // |first bit offset| kept below it
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+static_assert(kSpan % kThreads == 0, "every thread decodes as many offsets");
+static_assert(kSpan + 14 <= kNextMask, "next offsets fit 13 bits");
+static_assert((31 + 74 + kSpan + 31) / 32 < kStage,
+              "the window holds every bit the walk reads");
+constexpr int kRoom = kSpan > 2 * kLutSize ? kSpan : 2 * kLutSize;
 
 __constant__ int16_t kLenBase[29] = {
     3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31,
@@ -111,118 +146,231 @@ __device__ __forceinline__ int fixed_ll_len(int s) {
   return s < 144 ? 8 : s < 256 ? 9 : s < 280 ? 7 : 8;
 }
 
-// The header's words: s[k] holds word min(first + k, n_words - 1).
+// The header's words: s[k] holds word min(first + k, n_words - 1). Bit
+// positions are relative to bit 0 of word `first`; word indices relative
+// to it clip to [kmin, kmax] = [-first, n_words - 1 - first].
 struct Staged {
   const uint32_t* s;
   const int64_t* words;
-  int64_t n_words;
   int64_t first;
+  int kmin, kmax;
 
-  __device__ __forceinline__ uint32_t word(int64_t i) const {
-    const int64_t k = i - first;
-    return k >= 0 && k < kStage ? s[k] : static_cast<uint32_t>(words[i]);
+  __device__ __forceinline__ uint32_t word(int k) const {
+    return k >= 0 && k < kStage ? s[k]
+                                : static_cast<uint32_t>(words[first + k]);
   }
-  // 32 bits from bit position bp, LSB first, word indices clipped to the
-  // array (ops/build_tables.py::peek32).
-  __device__ __forceinline__ uint32_t peek(int64_t bp) const {
-    int64_t wi = bp >> 5;
-    wi = wi < 0 ? 0 : wi > n_words - 1 ? n_words - 1 : wi;
-    const int64_t wj = wi + 1 > n_words - 1 ? n_words - 1 : wi + 1;
-    const int sh = static_cast<int>(bp & 31);
-    const uint32_t lo = word(wi);
-    return sh ? (lo >> sh) | (word(wj) << (32 - sh)) : lo;
+  // 32 bits from relative bit position rel, LSB first, word indices clipped
+  // to the array (ops/build_tables.py::peek32).
+  __device__ __forceinline__ uint32_t peek(int rel) const {
+    int k = rel >> 5;
+    k = k < kmin ? kmin : k > kmax ? kmax : k;
+    const int kj = k + 1 > kmax ? kmax : k + 1;
+    const int sh = rel & 31;
+    const uint32_t lo = word(k);
+    return sh ? (lo >> sh) | (word(kj) << (32 - sh)) : lo;
   }
 };
 
+// Over the CTA's threads in order: the inclusive sum of a and the
+// exclusive maximum of m (-1 for thread 0). s_w holds 2 x kWarps ints.
+__device__ __forceinline__ void cta_scan(int& a, int& m, int* s_w) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int s = a, x = m;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int ys = __shfl_up_sync(kFull, s, d);
+    const int yx = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) {
+      s += ys;
+      x = max(x, yx);
+    }
+  }
+  int ex = __shfl_up_sync(kFull, x, 1);
+  if (lane == 0) ex = -1;
+  if (lane == 31) {
+    s_w[warp] = s;
+    s_w[kWarps + warp] = x;
+  }
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) {
+    s += s_w[w];
+    ex = max(ex, s_w[kWarps + w]);
+  }
+  __syncthreads();
+  a = s;
+  m = ex;
+}
+
+// The minimum of x over the CTA, in every thread; s_w holds kWarps ints.
+__device__ __forceinline__ int cta_min(int x, int* s_w) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) x = min(x, __shfl_xor_sync(kFull, x, d));
+  if ((threadIdx.x & 31) == 0) s_w[threadIdx.x >> 5] = x;
+  __syncthreads();
+  int m = s_w[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = min(m, s_w[w]);
+  __syncthreads();
+  return m;
+}
+
 struct Header {
-  int64_t bp;                  // the bit after the header
   int hlit, hdist;
+  int end;                     // the bit after the header, from bp0
   bool bad;
 };
 
-// A dynamic block's header, walked by one thread: writes the code lengths
-// it decodes into lens[kRleW] (zeroed by the caller; zeros are not written
-// again) and uses cl_lut[128] as its code-length LUT.
-__device__ Header parse_dynamic(const Staged& in, int64_t bp,
-                                int64_t bit_budget, uint8_t* lens,
-                                int32_t* cl_lut) {
+// A dynamic block's header, by the whole CTA (every thread calls it and
+// gets the same result): writes the code lengths it decodes into
+// s_lens[kRleW] (zeroed by the caller; zeros are not written again). `r0`
+// is the header's first bit after BTYPE, relative to the staged window;
+// `budget` the bits from there to the end of the words (clipped).
+__device__ Header parse_dynamic(const Staged& in, int r0, int budget,
+                                uint8_t* s_lens, uint32_t* s_dec) {
+  __shared__ int32_t s_cl_lut[1 << kClenBits];
+  __shared__ uint8_t s_clen[kNumClen], s_cl_rc[kNumClen];
+  __shared__ uint16_t s_path[kRleSteps];
+  __shared__ int32_t s_iend[kRleSteps];
+  __shared__ int8_t s_fill[kRleSteps];
+  __shared__ int32_t s_w[2 * kWarps];
+  const int t = threadIdx.x;
+
   Header h;
-  const uint32_t hw = in.peek(bp);
+  const uint32_t hw = in.peek(r0);
   h.hlit = static_cast<int>(hw & 31) + 257;
   h.hdist = static_cast<int>((hw >> 5) & 31) + 1;
   const int hclen = static_cast<int>((hw >> 10) & 15) + 4;
-  h.bad = h.hlit > 286 || h.hdist > 30;
-  bp += 14;
+  const int rle = 14 + 3 * hclen;          // the first RLE bit, from r0
+  if (t < kNumClen)
+    s_clen[kClenOrder[t]] =
+        t < hclen ? static_cast<uint8_t>(in.peek(r0 + 14 + 3 * t) & 7) : 0;
+  __syncthreads();
 
-  int clen[kNumClen];
-#pragma unroll
-  for (int j = 0; j < kNumClen; ++j) clen[j] = 0;
+  // the code-length code: counts, Kraft, canonical codes, then the LUT
   int count[kClenBits + 1] = {0};
-  for (int j = 0; j < hclen; ++j) {
-    const int v = static_cast<int>(in.peek(bp + 3 * j) & 7);
-    clen[kClenOrder[j]] = v;
-  }
-  bp += 3 * hclen;
-  for (int j = 0; j < kNumClen; ++j)
-    if (clen[j] > 0) ++count[clen[j]];
-  int kraft = 0, next[kClenBits + 1], code = 0;
-  next[0] = 0;
+  for (int j = 0; j < kNumClen; ++j) ++count[s_clen[j]];
+  int kraft = 0, code = 0, next_code = 0;
+  const int my_len = t < kNumClen ? s_clen[t] : 0;
   for (int l = 1; l <= kClenBits; ++l) {
-    code = (code + count[l - 1]) << 1;     // count[0] is 0
-    next[l] = code;
+    code = (code + (l > 1 ? count[l - 1] : 0)) << 1;
+    if (l == my_len) next_code = code;
     kraft += count[l] << (kClenBits - l);
   }
-  h.bad = h.bad || kraft > (1 << kClenBits);
-  for (int p = 0; p < (1 << kClenBits); ++p) cl_lut[p] = 0;
-  for (int j = 0; j < kNumClen; ++j) {
-    const int len = clen[j];
-    if (len == 0) continue;
-    const uint32_t c = static_cast<uint32_t>(next[len]++);
-    const uint32_t rc = __brev(c) >> (32 - len);
-    const int32_t pay = j | (len << 5);
-    for (uint32_t k = 0; k < (1u << (kClenBits - len)); ++k)
-      cl_lut[rc | (k << len)] += pay;
+  h.bad = h.hlit > 286 || h.hdist > 30 || kraft > (1 << kClenBits);
+  if (my_len > 0) {
+    for (int j = 0; j < t; ++j) next_code += s_clen[j] == my_len;
+    s_cl_rc[t] = static_cast<uint8_t>(
+        __brev(static_cast<uint32_t>(next_code)) >> (32 - my_len));
   }
+  __syncthreads();
+  if (t < (1 << kClenBits)) {
+    int32_t e = 0;
+    for (int j = 0; j < kNumClen; ++j) {
+      const int len = s_clen[j];
+      if (len > 0 && (t & ((1 << len) - 1)) == s_cl_rc[j]) e += j | (len << 5);
+    }
+    s_cl_lut[t] = e;
+  }
+  if (h.bad) {                             // no RLE step runs
+    h.end = rle;
+    return h;
+  }
+  __syncthreads();
 
-  const int total = h.hlit + h.hdist;
-  int i = 0, prev = -1;
-  for (int step = 0; step < kRleSteps && i < total && !h.bad; ++step) {
-    const uint32_t lo = in.peek(bp);
-    const int32_t e = cl_lut[lo & 127];
+  // the code-length symbol at every bit offset the walk can reach
+  for (int m = 0; m < kPerThread; ++m) {
+    const int o = m * kThreads + t;
+    const uint32_t lo = in.peek(r0 + rle + o);
+    const int32_t e = s_cl_lut[lo & 127];
     const int cl = e >> 5;
     const int sym = e & 0x1F;
-    if (cl == 0) h.bad = true;
-    const bool is_lit = sym < 16, is16 = sym == 16;
-    const int eb = is16 ? 2 : sym == 17 ? 3 : sym == 18 ? 7 : 0;
+    const int eb = sym == 16 ? 2 : sym == 17 ? 3 : sym == 18 ? 7 : 0;
     const int ev = static_cast<int>((lo >> cl) & ((1u << eb) - 1));
-    const int rep = is_lit ? 1 : sym <= 17 ? 3 + ev : 11 + ev;
-    const int fill = is_lit ? sym : is16 ? prev : 0;
-    if (is16 && prev < 0) h.bad = true;
-    if (fill > 0) {
-      const int end = i + rep < kRleW ? i + rep : kRleW;
-      for (int k = i; k < end; ++k) lens[k] = static_cast<uint8_t>(fill);
-    }
-    i += rep;
-    if (i > total) h.bad = true;
-    prev = fill;
-    bp += cl + eb;
-    if (bp > bit_budget) h.bad = true;
+    const int rep = sym < 16 ? 1 : sym <= 17 ? 3 + ev : 11 + ev;
+    s_dec[o] = static_cast<uint32_t>(o + cl + eb) | (rep << 13) | (sym << 21);
   }
-  h.bp = bp;
+  __syncthreads();
+
+  // the path: thread 0 follows the next offsets from the first RLE bit
+  // until the lengths are complete or a step reads no code (cl 0)
+  // the path: the offset of every step from the first RLE bit, by pointer
+  // doubling over the next offsets (after round r, s_jump[cur] jumps 2^r
+  // steps and the first 2^r steps are placed); an offset past the span is
+  // one no step before the lengths are complete reaches
+  {
+    __shared__ uint16_t s_jump[2][kSpan];
+    for (int m = 0; m < kPerThread; ++m) {
+      const int o = m * kThreads + t;
+      const int nx = static_cast<int>(s_dec[o] & kNextMask);
+      s_jump[0][o] = static_cast<uint16_t>(nx < kSpan ? nx : kSpan - 1);
+    }
+    if (t == 0) s_path[0] = 0;
+    __syncthreads();
+    int cur = 0;
+    for (int r = 0; (1 << r) < kRleSteps; ++r) {
+      const int k = (1 << r) + t;
+      if (t < (1 << r) && k < kRleSteps)
+        s_path[k] = s_jump[cur][s_path[k - (1 << r)]];
+      uint16_t j2[kPerThread];
+      for (int m = 0; m < kPerThread; ++m)
+        j2[m] = s_jump[cur][s_jump[cur][m * kThreads + t]];
+      for (int m = 0; m < kPerThread; ++m)
+        s_jump[cur ^ 1][m * kThreads + t] = j2[m];
+      cur ^= 1;
+      __syncthreads();
+    }
+  }
+
+  // one thread per step: its place, its previous length, whether it is
+  // bad; the steps run up to the one that completes the lengths or reads
+  // no code (cl 0)
+  const int total = h.hlit + h.hdist;
+  const int at = s_path[t];
+  const uint32_t x = s_dec[at];
+  const int nxt = static_cast<int>(x & kNextMask);
+  const int rep = static_cast<int>((x >> 13) & 0xFF);
+  const int sym = static_cast<int>(x >> 21);
+  int key = sym == 16 ? -1 : (t << 5) | (sym < 16 ? sym : 0);
+  int i_end = rep;
+  cta_scan(i_end, key, s_w);
+  const int n_steps =
+      cta_min(i_end >= total || nxt == at ? t + 1 : kRleSteps, s_w);
+  const bool on = t < n_steps;
+  const int prev = key < 0 ? -1 : key & 31;
+  const int fill = sym < 16 ? sym : sym == 16 ? prev : 0;
+  const bool bad = on && (nxt == at || (sym == 16 && prev < 0) ||
+                          i_end > total || rle + nxt > budget);
+  if (on) {
+    s_iend[t] = i_end;
+    s_fill[t] = static_cast<int8_t>(fill);
+  }
+  const int first_bad = cta_min(bad ? t : kRleSteps, s_w);   // syncs
+  const int last = first_bad < n_steps ? first_bad : n_steps - 1;
+  h.bad = first_bad < n_steps;
+  h.end = rle + static_cast<int>(s_dec[s_path[last]] & kNextMask);
+  if (t < kRleW) {                         // the step that covers length t
+    int lo = 0, hi = last + 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_iend[mid] > t) hi = mid; else lo = mid + 1;
+    }
+    if (lo <= last && s_fill[lo] > 0) s_lens[t] = s_fill[lo];
+  }
   return h;
 }
 
 __global__ void __launch_bounds__(kThreads)
 build_tables_kernel(Params p) {
-  __shared__ __align__(16) int32_t s_lut[2][kLutSize];   // litlen, dist
+  // the LUTs (litlen, dist); before them, the walk's decode per bit offset
+  __shared__ __align__(16) uint32_t s_room[kRoom];
+  int32_t (*s_lut)[kLutSize] =
+      reinterpret_cast<int32_t (*)[kLutSize]>(s_room);
   __shared__ int32_t s_sym[kThreads];
   __shared__ int32_t s_wcnt[kWarps][kCntLen];
   __shared__ int32_t s_tot[2][kCntLen], s_next[2][kCntLen], s_offs[2][kCntLen];
   __shared__ int32_t s_present[2], s_over[2];
-  __shared__ int32_t s_cl_lut[1 << kClenBits];
   __shared__ uint32_t s_words[kStage];
   __shared__ uint8_t s_lens[kRleW + 4];
-  __shared__ Header s_hdr;
 
   const int b = blockIdx.x;
   const int t = threadIdx.x;
@@ -235,33 +383,37 @@ build_tables_kernel(Params p) {
   const bool is_sto = blive && btype == 0;
   const int64_t bp0 = p.blk_bit[b] + 3;           // skip BFINAL/BTYPE
 
-  for (int i = t; i < 2 * kLutSize; i += kThreads) (&s_lut[0][0])[i] = 0;
   if (t < kRleW + 4) s_lens[t] = 0;
   if (t < kWarps * kCntLen) (&s_wcnt[0][0])[t] = 0;
-  Staged in;
-  in.s = s_words;
-  in.words = p.words;
-  in.n_words = p.n_words;
   int64_t first = bp0 >> 5;
   first = first < 0 ? 0 : first > p.n_words - 1 ? p.n_words - 1 : first;
-  in.first = first;
   if (is_dyn && t < kStage) {
     const int64_t i = first + t > p.n_words - 1 ? p.n_words - 1 : first + t;
     s_words[t] = static_cast<uint32_t>(p.words[i]);
   }
   __syncthreads();
-  if (t == 0) {
-    if (is_dyn) {
-      s_hdr = parse_dynamic(in, bp0, 32 * p.n_words, s_lens, s_cl_lut);
-    } else {
-      s_hdr.bp = bp0;
-      s_hdr.hlit = 257;
-      s_hdr.hdist = 1;
-      s_hdr.bad = blive && btype == 3;            // reserved BTYPE
-    }
+  Header hdr = {257, 1, 0, blive && btype == 3};  // reserved BTYPE: bad
+  if (is_dyn) {                                   // the same in every thread
+    Staged in;
+    in.s = s_words;
+    in.words = p.words;
+    in.first = first;
+    in.kmin = static_cast<int>(-first);
+    in.kmax = static_cast<int>(p.n_words - 1 - first);
+    // the header's first bit relative to the window, kept in 32 bits (far
+    // outside the words every read clips to the same word either way)
+    int64_t r0 = bp0 - 32 * first;
+    if (r0 > kRelLimit) r0 = kRelLimit + (r0 & 31);
+    if (r0 < -kRelLimit) r0 = -kRelLimit + (r0 & 31);
+    int64_t budget = 32 * p.n_words - bp0;
+    budget = budget < -1 ? -1 : budget > (1 << 30) ? (1 << 30) : budget;
+    hdr = parse_dynamic(in, static_cast<int>(r0), static_cast<int>(budget),
+                        s_lens, s_room);
   }
+  __syncthreads();                          // the walk is done with s_lut
+  for (int i = t; i < 2 * kLutSize; i += kThreads) (&s_lut[0][0])[i] = 0;
   __syncthreads();
-  const int hlit = s_hdr.hlit, hdist = s_hdr.hdist;
+  const int hlit = hdr.hlit, hdist = hdr.hdist;
 
   // this thread's symbol: its alphabet, index and code length
   const int a = t < kNumLitlen ? 0 : 1;
@@ -354,8 +506,8 @@ build_tables_kernel(Params p) {
   }
   if (t == 0) {
     const bool huff = is_dyn || is_fix;
-    p.hdr_end[b] = s_hdr.bp;
-    p.bbad[b] = s_hdr.bad || (huff && (s_over[0] || s_over[1]));
+    p.hdr_end[b] = bp0 + hdr.end;
+    p.bbad[b] = hdr.bad || (huff && (s_over[0] || s_over[1]));
     p.blive[b] = blive;
     p.huff[b] = huff;
     p.is_sto[b] = is_sto;
@@ -376,7 +528,7 @@ extern "C" int build_tables_launch(
     void* hdr_end, void* bbad, void* blive, void* huff, void* is_sto,
     int device, void* stream) {
   if (nb <= 0) return 0;
-  if (nb > 0x7FFFFFFF || n_words < 1 ||
+  if (nb > 0x7FFFFFFF || n_words < 1 || n_words > 0x7FFFFFFF ||
       (reinterpret_cast<uintptr_t>(ll_lut) & 15) ||
       (reinterpret_cast<uintptr_t>(d_lut) & 15))
     return static_cast<int>(cudaErrorInvalidValue);

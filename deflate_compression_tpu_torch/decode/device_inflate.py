@@ -21,9 +21,10 @@ from the encoder or from one host pass over a foreign stream
   Phase C (`phase_c`) — output bytes: stored-block slice copies, each
     position's covering-token distance, the same-distance run collapse and
     tagged-value pointer doubling (full rounds; the JAX decoder's
-    scatter-free compact tail only dodges TPU scatters). The bytes are the
-    CUDA kernels of `copy_sources` on the card, their plain version on the
-    CPU (ops/copy_sources.py); the verdict is a few tensor operations.
+    scatter-free compact tail only dodges TPU scatters), and the bytes past
+    valid_out cleared. The bytes are the CUDA kernels of `copy_sources` on
+    the card, their plain version on the CPU (ops/copy_sources.py); the
+    verdict is a few tensor operations.
 
 Strictness is the JAX decoder's: invalid prefixes, litlen symbols >= 286,
 dist symbols >= 30, HLIT > 286 / HDIST > 30, oversubscribed trees, a repeat
@@ -153,12 +154,10 @@ def phase_c(p: Plan, b: DS.SymbolResult, out_size: int, prefix=None,
     CPU tensor, and the decode's verdict: dict(out=u8[out_size], ok,
     bad_lanes)."""
     a = p.a
-    v, bad_dist, unconverged = CS.resolve_bytes(
+    out, bad_dist, unconverged = CS.resolve_bytes(
         p.w, b.tok, p.blk_bit, p.blk_out, p.blk_end, a.blive, a.is_sto,
-        out_size, prefix, prefix_len)
-    j = torch.arange(int(out_size), device=v.device)
+        out_size, prefix, prefix_len, p.valid_out)
     bad_lanes = p.ln.llive & (b.bad | ~b.done)
-    out = torch.where(j < p.valid_out, v, 0)
     ok = (~bad_lanes.any() & ~(a.bbad & a.blive).any() & ~bad_dist
           & ~unconverged)
     return {"out": out, "ok": ok, "bad_lanes": bad_lanes}

@@ -6,11 +6,13 @@ which the JAX package left to XLA: it has no Pallas kernel. Per output
 position: the literal or prefix value; the live-block coverage and the
 covering block's stored flag; the stored blocks' byte copies, later blocks
 winning; the covering token and its distance; the source pointer with
-same-distance runs collapsed to one step; and the pointer-doubling rounds
-that resolve every position to a byte. The kernels (`csrc/copy_sources.cu`,
-one library, several launches per call) are built at first use by
-`ops/cuda_build.py` and called through ctypes on PyTorch's current stream;
-the call waits for nothing on the device.
+same-distance runs collapsed to one step; the pointer-doubling rounds that
+resolve every position to a byte; and the bytes at or past `valid_out` set
+to 0. The kernels (`csrc/copy_sources.cu`: the blocks ranked by start, one
+pass over the tokens, and the rounds in one persistent kernel that stops
+when no pointer is left) are built at first use by `ops/cuda_build.py` and
+called through ctypes on PyTorch's current stream; the call waits for
+nothing on the device.
 
 `resolve_bytes` launches its kernels for CUDA tensors and raises if it
 cannot; it takes the plain version `resolve_bytes_ref` only for tensors
@@ -41,18 +43,21 @@ def max_rounds(out_size: int) -> int:
 
 @functools.cache
 def _bind():
-    """The launch function, bound once, and the raw current-stream
-    lookup."""
+    """The launch function and the scratch-size query, bound once, and the
+    raw current-stream lookup."""
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib = cuda_build.load(SOURCE, {"copy_sources_launch": [
-        vp, i64, vp, i64, vp, vp, vp, vp, vp, i64, vp, i64, vp, i64, i64, vp,
-        vp, vp, vp, ctypes.c_int, vp]})
-    return lib.copy_sources_launch, cuda_build.raw_stream()
+    lib = cuda_build.load(SOURCE, {
+        "copy_sources_scratch_bytes": [i64, i64, ctypes.POINTER(i64)],
+        "copy_sources_launch": [
+            vp, i64, vp, i64, vp, vp, vp, vp, vp, i64, vp, i64, vp, i64, vp,
+            i64, i64, vp, vp, vp, ctypes.c_int, vp]})
+    return (lib.copy_sources_launch, lib.copy_sources_scratch_bytes,
+            cuda_build.raw_stream())
 
 
 def resolve_bytes_ref(w, tok, blk_bit, blk_out, blk_end, blive, is_sto,
                       out_size: int, prefix=None, prefix_len=None,
-                      stats: dict | None = None):
+                      valid_out=None, stats: dict | None = None):
     """Plain version of the kernels. Arguments and results as for
     `resolve_bytes`; `stats`, if given, receives the rounds run and the
     tagged positions each round gathered (it waits for the device each
@@ -135,7 +140,10 @@ def resolve_bytes_ref(w, tok, blk_bit, blk_out, blk_end, blive, is_sto,
     if stats is not None:
         stats["tagged"] = rounds
         stats["stored_bytes"] = int(n.sum()) if sto.numel() else 0
-    return (v & 0xFF).to(torch.uint8), bad_dist, tag.any()
+    out = (v & 0xFF).to(torch.uint8)
+    if valid_out is not None:
+        out = torch.where(j < torch.as_tensor(valid_out, device=dev), out, 0)
+    return out, bad_dist, tag.any()
 
 
 def _check(w, tok, blk_bit, blk_out, blk_end, blive, is_sto, S) -> None:
@@ -154,8 +162,18 @@ def _check(w, tok, blk_bit, blk_out, blk_end, blive, is_sto, S) -> None:
             raise ValueError(f"{name} must be {dt}[{NB}] on {dev}")
 
 
+def _scalar(x, dev, name):
+    """(device pointer, 0) for one int64 on dev, else (None, int(x))."""
+    if isinstance(x, torch.Tensor):
+        if x.numel() != 1 or x.device != dev or x.dtype != torch.int64:
+            raise ValueError(f"{name} must be an int or one int64 on {dev}")
+        return x.data_ptr(), 0
+    return None, int(x)
+
+
 def resolve_bytes(w, tok, blk_bit, blk_out, blk_end, blive, is_sto,
-                  out_size: int, prefix=None, prefix_len=None):
+                  out_size: int, prefix=None, prefix_len=None,
+                  valid_out=None, stats: dict | None = None):
     """The decoded byte of every output position.
 
     w: i64[CW] stream words (u32 values). tok: i32[>= out_size] packed
@@ -163,35 +181,28 @@ def resolve_bytes(w, tok, blk_bit, blk_out, blk_end, blive, is_sto,
     distance, low 9 bits literal). Per block slot (NB): blk_bit, blk_out,
     blk_end (int64: header bit, output start and end), blive and is_sto
     (bool). prefix (u8) occupies output [0, prefix_len), prefix_len an int
-    or one int64 on tok's device. Returns (v u8[out_size], bad_dist,
-    unconverged): a match reached before the output start, and pointers
-    left after the round bound (both 0-dim bool). A CUDA tensor goes
-    through the kernels (or this raises); a CPU tensor through
-    `resolve_bytes_ref`."""
+    or one int64 on tok's device. valid_out (an int or one int64 on tok's
+    device, default out_size): the bytes at or past it are 0. Returns
+    (v u8[out_size], bad_dist, unconverged): a match reached before the
+    output start, and pointers left after the round bound (both 0-dim
+    bool). A CUDA tensor goes through the kernels (or this raises); a CPU
+    tensor through `resolve_bytes_ref`. `stats`, if given, receives the
+    gather rounds the kernels ran (`rounds`; it waits for the device) or
+    the plain version's stats."""
     S = int(out_size)
     _check(w, tok, blk_bit, blk_out, blk_end, blive, is_sto, S)
     dev = tok.device
     if dev.type == "cpu":
         return resolve_bytes_ref(w, tok, blk_bit, blk_out, blk_end, blive,
-                                 is_sto, S, prefix, prefix_len)
+                                 is_sto, S, prefix, prefix_len, valid_out,
+                                 stats)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if S > MAX_OUT:
         raise ValueError(f"out_size {S} is past the kernels' int32 positions")
     NB = blk_bit.shape[0]
-    out = torch.empty(S, dtype=torch.uint8, device=dev)
-    rounds = max_rounds(S)
-    # [0] bad_dist, [1] unconverged, [2 + r] pointers left after round r
-    flags = torch.zeros(3 + rounds, dtype=torch.int32, device=dev)
-    if S == 0:
-        return out, flags[0] != 0, flags[1] != 0
-    n_tiles = -(-S // TILE)
-    v = torch.empty(S, dtype=torch.int32, device=dev)
-    scratch = torch.empty(5 * n_tiles + 3 * NB + 1, dtype=torch.int32,
-                          device=dev)
-    w, tok, blk_bit, blk_out, blk_end, blive, is_sto = (
-        x.contiguous() for x in (w, tok, blk_bit, blk_out, blk_end, blive,
-                                 is_sto))
+    vo_ptr, vo_val = _scalar(S if valid_out is None else valid_out, dev,
+                             "valid_out")
     if prefix is None:
         pre_ptr, pre_n, pl_ptr, pl_val = None, 0, None, 0
     else:
@@ -199,25 +210,37 @@ def resolve_bytes(w, tok, blk_bit, blk_out, blk_end, blive, is_sto,
         if prefix.dtype != torch.uint8 or prefix.dim() != 1:
             raise TypeError("prefix must be 1-D uint8")
         pre_ptr, pre_n = prefix.data_ptr(), min(prefix.shape[0], S)
-        if isinstance(prefix_len, torch.Tensor):
-            if (prefix_len.numel() != 1 or prefix_len.device != dev
-                    or prefix_len.dtype != torch.int64):
-                raise ValueError(f"prefix_len must be an int or one int64 "
-                                 f"on {dev}")
-            pl_ptr, pl_val = prefix_len.data_ptr(), 0
-        else:
-            pl_ptr, pl_val = None, int(prefix_len)
-    launch, stream = _bind()
+        pl_ptr, pl_val = _scalar(prefix_len, dev, "prefix_len")
+    launch, scratch_bytes, stream = _bind()
+    n = ctypes.c_int64()
+    rc = scratch_bytes(S, NB, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"copy_sources scratch size failed: cudaError {rc}")
+    # the scratch's first ints: bad_dist, unconverged, ..., rounds run (9)
+    scratch = torch.empty(max(n.value, 64), dtype=torch.uint8, device=dev)
+    head = scratch[:64].view(torch.int32)
+    out = torch.empty(S, dtype=torch.uint8, device=dev)
+    if S == 0:
+        head.zero_()
+        if stats is not None:
+            stats["rounds"] = 0
+        return out, head[0] != 0, head[1] != 0
+    v = torch.empty(S, dtype=torch.int32, device=dev)
+    w, tok, blk_bit, blk_out, blk_end, blive, is_sto = (
+        x.contiguous() for x in (w, tok, blk_bit, blk_out, blk_end, blive,
+                                 is_sto))
     rc = launch(w.data_ptr(), w.shape[0], tok.data_ptr(), S,
                 blk_bit.data_ptr(), blk_out.data_ptr(), blk_end.data_ptr(),
                 blive.data_ptr(), is_sto.data_ptr(), NB, pre_ptr, pre_n,
-                pl_ptr, pl_val, rounds, v.data_ptr(), scratch.data_ptr(),
-                flags.data_ptr(), out.data_ptr(), dev.index,
+                pl_ptr, pl_val, vo_ptr, vo_val, max_rounds(S), v.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), dev.index,
                 stream(dev.index))
     if rc != 0:
         raise RuntimeError(f"copy_sources launch failed: cudaError {rc}")
     resolve_bytes.launches += 1
-    return out, flags[0] != 0, flags[1] != 0
+    if stats is not None:
+        stats["rounds"] = int(head[9])
+    return out, head[0] != 0, head[1] != 0
 
 
 resolve_bytes.launches = 0

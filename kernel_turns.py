@@ -1,6 +1,6 @@
 """Time two trees of the port in turns on one CUDA card.
 
-    python3 kernel_turns.py TREE [TREE ...] [--out FILE]
+    python3 kernel_turns.py TREE [TREE ...] [--out FILE] [--phases-only]
 
 Each TREE is the root of a checkout of this repository (for example the
 parent commit unpacked with `git archive` into a git-ignored directory,
@@ -19,7 +19,8 @@ ops/timing.py` (loaded by path, so every tree is timed alike):
     corpus: ms per call, queued device ms where the call lets the device
     run ahead, and the kernel's profiler ms;
   * encode MB/s (second `ZlibCodec.compress`), ratio, and verified-decode
-    MB/s (one flat `decode_blocks_batch` plus adler32 per shard);
+    MB/s (one flat `decode_blocks_batch` plus adler32 per shard; the
+    median of 11 runs after a warm-up, and every run);
   * the encoder's LZ77 kernels at a 1 MB and a 4 MB shard of
     `corpus.build_corpus`: `find_matches` and `lz_parse` (the int64 calls
     every tree has), device ms per call (20 calls queued behind a spin
@@ -27,9 +28,17 @@ ops/timing.py` (loaded by path, so every tree is timed alike):
     (median of 10, each ended by a synchronize), torch's stable sort of
     the shard's hash keys as int32 and as int16 (device ms); and, where
     the tree has them, the same for the packed calls tokenize makes
-    (`find_matches_packed`, `lz_parse_packed`).
+    (`find_matches_packed`, `lz_parse_packed`);
+  * the decoder's phase kernels on the flat batch of the 8.5 MB corpus in
+    1 MB shards and of the 32 MB corpus in 4 MB shards, called as the
+    decode calls them: `ops.build_tables.build_tables` and
+    `ops.copy_sources.resolve_bytes`, device ms per call (20 calls queued
+    behind a spin kernel) and profiler ms by kernel name; the gather
+    rounds resolve_bytes ran where the tree reports them, the rounds its
+    plain version runs, and the rounds bound.
 
-Every process prints one JSON line; the first process prints them all and,
+With `--phases-only` a process measures the last item alone (for trees
+that differ only in those kernels). Every process prints one JSON line; the first process prints them all and,
 given `--out FILE`, writes them there as one JSON list. Needs a CUDA card.
 """
 from __future__ import annotations
@@ -56,7 +65,7 @@ def _helpers():
     return mod
 
 
-def child(tree: Path) -> dict:
+def child(tree: Path, phases_only: bool = False) -> dict:
     import numpy as np
     import torch
     sys.path.insert(0, str(tree))     # ahead of this script's folder
@@ -76,6 +85,9 @@ def child(tree: Path) -> dict:
     T = _helpers()
     dev = torch.device("cuda")
     res = {"tree": str(tree), "card": torch.cuda.get_device_name(0)}
+    res["phases"] = phase_times(T, dev)
+    if phases_only:
+        return res
 
     def kernels_of(fn):
         return sorted(k for k in T.profiled_ms(fn, 5))
@@ -110,20 +122,8 @@ def child(tree: Path) -> dict:
     res["ratio"] = len(blob) / len(raw)
 
     S = cfg.shard_size
-    sink = []
-    pieces = list(compress_stream([raw], cfg, index_sink=sink, device=dev))
-    nsh = len(sink)
-    words = np.zeros((nsh, out_words(S)), np.int64)
-    for i, part in enumerate(pieces[1:-1]):
-        padded = part + bytes(-len(part) % 4)
-        words[i, :len(padded) // 4] = np.frombuffer(padded, "<u4")
-    keys = ("block_bit_base", "block_out_start", "btype", "n_blocks",
-            "sub_bit", "sub_out", "sub_blk")
-    batch = [torch.from_numpy(words).to(dev)] + [
-        torch.from_numpy(np.stack([st[k] for st, _, _ in sink])).to(dev)
-        for k in keys]
-    valid = [v for _, _, v in sink]
-    flat = DI.flat_batch(*batch, valid, S)
+    flat, _, batch, valid = flat_decode_batch(raw, cfg, dev)
+    nsh = len(valid)
     args = DI.phase_b_args(DI.plan(**flat), nsh * S, 32768)
     fn = lambda: DS.decode_symbols(*args)  # noqa: E731
     dms, held = T.device_ms(fn, 20)
@@ -143,13 +143,112 @@ def child(tree: Path) -> dict:
         if not bool(r["ok"]) or ads != want:
             raise AssertionError("verified decode failed")
     verified()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    verified()
-    torch.cuda.synchronize()
-    res["verified_decode_mb_s"] = len(raw) / (time.perf_counter() - t0) / 1e6
+    runs = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verified()
+        torch.cuda.synchronize()
+        runs.append(len(raw) / (time.perf_counter() - t0) / 1e6)
+    res["verified_decode_mb_s"] = float(np.median(runs))
+    res["verified_decode_mb_s_runs"] = runs
     res["lz77"] = lz77_times(T, dev)
     return res
+
+
+def leaves(x) -> list:
+    """The tensors of a kernel's result (a tensor or nested tuples)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in leaves(y)]
+
+
+def kernels_by_name(T, fn) -> dict:
+    """Profiler ms per call of fn, summed by kernel name."""
+    import re
+    out = {}
+    for k, v in T.profiled_ms(fn, 5).items():
+        k = re.search(r"\w*(_kernel|Kernel)|$", k).group() or k[:30]
+        out[k] = out.get(k, 0.0) + v
+    return out
+
+
+def flat_decode_batch(raw: bytes, cfg, dev):
+    """The flat decode_blocks_batch arguments of raw encoded in the
+    config's shards (every shard's words and index on the card), and the
+    flat decode's output size."""
+    import numpy as np
+    import torch
+    from deflate_compression_tpu_torch.decode import device_inflate as DI
+    from deflate_compression_tpu_torch.format.deflate import out_words
+    from deflate_compression_tpu_torch.models.codec import compress_stream
+    S = cfg.shard_size
+    sink = []
+    pieces = list(compress_stream([raw], cfg, index_sink=sink, device=dev))
+    nsh = len(sink)
+    words = np.zeros((nsh, out_words(S)), np.int64)
+    for i, part in enumerate(pieces[1:-1]):
+        padded = part + bytes(-len(part) % 4)
+        words[i, :len(padded) // 4] = np.frombuffer(padded, "<u4")
+    keys = ("block_bit_base", "block_out_start", "btype", "n_blocks",
+            "sub_bit", "sub_out", "sub_blk")
+    batch = [torch.from_numpy(words).to(dev)] + [
+        torch.from_numpy(np.stack([st[k] for st, _, _ in sink])).to(dev)
+        for k in keys]
+    valid = [v for _, _, v in sink]
+    return DI.flat_batch(*batch, valid, S), nsh * S, batch, valid
+
+
+def phase_times(T, dev) -> dict:
+    """The decoder's phase kernels block of a tree's line (see the
+    module's docstring)."""
+    import torch
+    from deflate_compression_tpu_torch import CodecConfig
+    from deflate_compression_tpu_torch.corpus import build_corpus
+    from deflate_compression_tpu_torch.decode import device_inflate as DI
+    from deflate_compression_tpu_torch.ops import build_tables as BT
+    from deflate_compression_tpu_torch.ops import copy_sources as CS
+    out = {}
+    for label, n, shard in (("1mb", CORPUS_BYTES, 1 << 20),
+                            ("4mb", 32 << 20, 4 << 20)):
+        flat, S, _, _ = flat_decode_batch(
+            build_corpus(n), CodecConfig(shard_size=shard), dev)
+        p = DI.plan(**flat)
+        tok = DI.phase_b(p, S, 32768).tok
+        a_args = (p.w, p.blk_bit, flat["blk_btype"],
+                  torch.tensor(flat["n_blocks"], device=dev))
+        c_args = (p.w, tok, p.blk_bit, p.blk_out, p.blk_end, p.a.blive,
+                  p.a.is_sto, S)
+        bt = lambda: BT.build_tables(*a_args)  # noqa: E731
+        cs = lambda: CS.resolve_bytes(*c_args)  # noqa: E731
+        r = {"positions": S, "block_slots": int(p.blk_bit.numel()),
+             "build_tables_ms": T.device_ms(bt, 20)[0],
+             "build_tables_prof": kernels_by_name(T, bt),
+             "resolve_bytes_ms": T.device_ms(cs, 20)[0],
+             "resolve_bytes_prof": kernels_by_name(T, cs),
+             "rounds_bound": CS.max_rounds(S)}
+        try:
+            stats = {}
+            CS.resolve_bytes(*c_args, stats=stats)
+            r["rounds_run"] = stats.pop("rounds")
+            if stats:
+                r["kernel_stats"] = stats
+        except TypeError:           # a tree whose kernels do not report it
+            r["rounds_run"] = None
+        # both kernels held against their plain versions (on the CPU)
+        cpu = [x.cpu() if isinstance(x, torch.Tensor) else x
+               for x in (*a_args, *c_args)]
+        stats = {}
+        for got, want in ((bt(), BT.build_tables_ref(*cpu[:4])),
+                          (cs(), CS.resolve_bytes_ref(*cpu[4:],
+                                                      stats=stats))):
+            for g, x in zip(leaves(got), leaves(want)):
+                if not torch.equal(g.cpu(), x):
+                    raise AssertionError(f"{label}: a phase kernel != plain")
+        r["plain_rounds"] = len(stats["tagged"])
+        out[label] = r
+    return out
 
 
 def lz77_times(T, dev) -> dict:
@@ -167,11 +266,7 @@ def lz77_times(T, dev) -> dict:
         return T.device_ms(fn, 20)[0]
 
     def by_name(fn):
-        out = {}
-        for k, v in T.profiled_ms(fn, 5).items():
-            k = re.search(r"\w*(_kernel|Kernel)|$", k).group() or k[:30]
-            out[k] = out.get(k, 0.0) + v
-        return out
+        return kernels_by_name(T, fn)
 
     def host_ms(fn):
         times = []
@@ -214,8 +309,11 @@ def lz77_times(T, dev) -> dict:
 
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--child":
-        print(json.dumps(child(Path(argv[1]).resolve())))
+        print(json.dumps(child(Path(argv[1]).resolve(),
+                               "--phases-only" in argv)))
         return 0
+    flags = [a for a in argv if a == "--phases-only"]
+    argv = [a for a in argv if a != "--phases-only"]
     out_file = None
     if "--out" in argv:
         i = argv.index("--out")
@@ -227,7 +325,7 @@ def main(argv) -> int:
     rows = []
     for tree in argv:
         out = subprocess.run([sys.executable, __file__, "--child",
-                              str(Path(tree).resolve())],
+                              str(Path(tree).resolve()), *flags],
                              capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             print(out.stdout, out.stderr, file=sys.stderr)

@@ -506,14 +506,14 @@ def _bytes_args(p, tok):
     return (p.w, tok, p.blk_bit, p.blk_out, p.blk_end, p.a.blive, p.a.is_sto)
 
 
-def _same_bytes(args, S, prefix=None, plen=None):
+def _same_bytes(args, S, prefix=None, plen=None, valid_out=None):
     """resolve_bytes on the card equals its plain version: the bytes,
     bad_dist and unconverged; one launch."""
     before = CS.resolve_bytes.launches
-    got = CS.resolve_bytes(*args, S, prefix, plen)
+    got = CS.resolve_bytes(*args, S, prefix, plen, valid_out)
     torch.cuda.synchronize()
     assert CS.resolve_bytes.launches == before + 1
-    want = CS.resolve_bytes_ref(*args, S, prefix, plen)
+    want = CS.resolve_bytes_ref(*args, S, prefix, plen, valid_out)
     assert got[0].dtype == torch.uint8 and got[0].shape == (S,)
     diff = torch.nonzero(got[0] != want[0]).flatten()
     assert diff.numel() == 0, (diff[:8].tolist(), diff.numel())
@@ -671,14 +671,18 @@ def test_resolve_bytes_kernel_long_run_and_bad_dist(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5, 6, 7])
 def test_resolve_bytes_kernel_random_tokens_and_blocks(cuda, seed):
     """Random token arrays (literals, matches of any distance, gaps of any
     length) over random block tables (overlapping, unsorted, dead, stored
-    blocks that overlap each other): exact equality, bad_dist included."""
+    blocks that overlap each other): exact equality, bad_dist included.
+    Seeds 6 and 7 start thousands of blocks in a few tiles, more than a
+    tile keeps in shared memory."""
     rng = np.random.default_rng(seed)
     S = int(rng.integers(1, 300_000)) if seed else 5000
-    NB = int(rng.integers(1, 60))
+    NB = int(rng.integers(1, 60)) if seed < 6 else 3000
+    if seed >= 6:
+        S = 5 * CS.TILE + 99
     CW = 4000
     kind = rng.random(S + 1)
     gap = rng.random() * 0.9
@@ -771,6 +775,190 @@ def test_decode_launches_all_four_decode_kernels(cuda):
                                1 << 18)
     assert bool(g["ok"])
     assert [f.launches for f in fns] == [n + 1 for n in before]
+
+
+def dynamic_header_words(seq, clen_lens, hlit=286, hdist=30, lead=0,
+                         tail_words=2) -> tuple:
+    """A dynamic block header as u32 words (int64) after `lead` zero bits:
+    BFINAL 1, BTYPE 2, HLIT/HDIST, HCLEN 19 (all 19 code-length lengths
+    sent), then the code-length symbols `seq` [(symbol, extra bits)] in the
+    canonical code of `clen_lens` (per symbol 0-18), then `tail_words`
+    zero words. Returns (words, the header's bits after BTYPE)."""
+    from deflate_compression_tpu_torch.core.huffman import canonical_codes_np
+    from deflate_compression_tpu_torch.format import constants as C
+    codes = canonical_codes_np(np.asarray(clen_lens, np.int64), 7)
+
+    def rev(code, n):
+        return int(format(int(code), f"0{n}b")[::-1], 2)
+    fields = [(1, 1), (2, 2), (hlit - 257, 5), (hdist - 1, 5), (15, 4)]
+    fields += [(clen_lens[C.CLEN_ORDER[j]], 3) for j in range(19)]
+    for s, ev in seq:
+        fields.append((rev(codes[s], clen_lens[s]), clen_lens[s]))
+        eb = {16: 2, 17: 3, 18: 7}.get(s, 0)
+        if eb:
+            fields.append((ev, eb))
+    bits, n = 0, lead
+    for value, nb in fields:
+        bits |= value << n
+        n += nb
+    n_words = (n + 31) // 32 + tail_words
+    words = np.frombuffer(bits.to_bytes(4 * n_words, "little"), "<u4")
+    return words.astype(np.int64), n - lead - 3
+
+
+# complete code-length codes: literals 6 and 7 in 7 bits; and 16 in 6
+# bits, 17 and 18 in 7 bits beside literals 1, 2, 3, 4 and 9
+CLEN_LITERALS = [1, 2, 3, 4, 5, 6, 7, 7] + [0] * 11
+CLEN_REPEATS = [0, 1, 2, 4, 5, 0, 0, 0, 0, 3] + [0] * 6 + [6, 7, 7]
+REPEATS = {16: (3, 2), 17: (3, 3), 18: (11, 7)}   # base, extra bits
+
+
+def _header_case(kind: str, lead: int):
+    """(words, header bits) of one hand-made dynamic header."""
+    rng = np.random.default_rng(lead)
+    if kind in ("longest", "at_end", "cut"):
+        # 316 lengths, each a 7-bit code: the most bits a header can take
+        seq = [(int(s), 0) for s in rng.choice([6, 7], 316)]
+        w, n = dynamic_header_words(seq, CLEN_LITERALS, lead=lead,
+                                    tail_words=2 if kind == "longest" else 0)
+        if kind == "cut":                  # the words end inside the walk
+            w = w[:len(w) // 2]
+        return w, n
+    seq, i = [(1, 0)], 1                   # repeats in 6- and 7-bit codes
+    while i < 316:
+        s = int(rng.choice([1, 2, 9, 16, 17, 18]))
+        base, eb = REPEATS.get(s, (1, 0))
+        ev = int(rng.integers(0, 1 << eb))
+        if i + base + ev <= 316:
+            seq.append((s, ev))
+            i += base + ev
+    return dynamic_header_words(seq, CLEN_REPEATS, lead=lead)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["longest", "at_end", "cut", "repeats"])
+@pytest.mark.parametrize("lead", [0, 1, 29, 31, 32 * 40 + 5])
+def test_build_tables_kernel_hand_made_headers(cuda, kind, lead):
+    """Hand-made headers with HCLEN 19 and all 316 lengths: the longest a
+    header can be (every length a 7-bit code), the same header ending on
+    the last word of the stream (reads past it clip to that word) and cut
+    by the end of the words (the bit budget), and repeat codes (16, 17,
+    18) with random extra bits; at several bit offsets in the first word
+    and 40 words in. No header reaches past the kernel's 152-word window:
+    a step takes at most 7 bits per length it adds."""
+    w, n_bits = _header_case(kind, lead)
+    w = torch.from_numpy(w).to(cuda)
+    bits = torch.tensor([lead, lead, lead - 7], device=cuda)
+    a = _same_tables(w, bits, torch.tensor([2, -1, 2], device=cuda), 3)
+    if kind == "cut":
+        assert bool(a.bbad[0]) and int(a.hdr_end[0]) < lead + 3 + n_bits
+    else:
+        assert int(a.hdr_end[0]) == lead + 3 + n_bits
+
+
+def _tokens(n: int) -> np.ndarray:
+    return np.zeros(n + 1, np.int32)
+
+
+def _tok_match(length: int, dist: int) -> int:
+    return length | (dist << 9) | (3 << 25)
+
+
+def _one_block(tok: np.ndarray, S: int):
+    """resolve_bytes arguments (CPU tensors) of tokens in one live Huffman
+    block over the whole output."""
+    t = torch.tensor
+    return (torch.zeros(4, dtype=torch.int64), torch.from_numpy(tok),
+            t([0]), t([0]), t([S]), t([True]), t([False]))
+
+
+def _same_bytes_rounds(cuda, args, S, **kw):
+    """_same_bytes on the card, and the gather rounds the kernel ran."""
+    stats = {}
+    got = CS.resolve_bytes(*(x.to(cuda) for x in args), S, stats=stats,
+                           **kw)
+    torch.cuda.synchronize()
+    _same_bytes(tuple(x.to(cuda) for x in args), S, **kw)
+    return got, stats["rounds"]
+
+
+@pytest.mark.cuda
+def test_resolve_bytes_kernel_pointers_inside_tiles(cuda):
+    """Every tile starts with 128 literals and its matches reach at most
+    100 back: every pointer resolves inside its tile, and the rounds
+    kernel gathers nothing."""
+    rng = np.random.default_rng(3)
+    n_tiles = 11
+    S = n_tiles * CS.TILE
+    tok = _tokens(S)
+    for base in range(0, S, CS.TILE):
+        tok[base:base + 128] = rng.integers(0, 256, 128) | (1 << 25)
+        p = base + 128
+        while p < base + CS.TILE - 3:
+            ln = int(rng.integers(3, min(60, base + CS.TILE - p) + 1))
+            tok[p] = _tok_match(ln, int(rng.integers(1, 101)))
+            p += ln
+            if p < base + CS.TILE and rng.random() < 0.3:
+                tok[p] = int(rng.integers(0, 256)) | (1 << 25)
+                p += 1
+    got, rounds = _same_bytes_rounds(cuda, _one_block(tok, S), S)
+    assert rounds == 0 and not bool(got[1]) and not bool(got[2])
+
+
+@pytest.mark.cuda
+def test_resolve_bytes_kernel_4mb_zero_run(cuda):
+    """A 4 MB run of distance 1 after one literal: one run over 2,048
+    tiles, resolved in one gather round."""
+    args, S = long_run_case(False, tiles=2048)
+    got, rounds = _same_bytes_rounds(cuda, args, S)
+    assert rounds == 1 and bool((got[0] == 65).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", [1, 32768, 0])
+def test_resolve_bytes_kernel_chains_across_tile_edges(cuda, dist):
+    """After 32 KB of random literals, literals and matches of distance 1
+    or 32768 (0: both, at random) of random lengths, most runs crossing a
+    tile edge: each match's source is a pointer, chains of many hops."""
+    rng = np.random.default_rng(dist + 1)
+    S = 60 * CS.TILE + 123
+    tok = _tokens(S)
+    tok[:32768] = rng.integers(0, 256, 32768) | (1 << 25)
+    p = 32768
+    while p < S:
+        tok[p] = int(rng.integers(0, 256)) | (1 << 25)
+        p += 1
+        d = dist or int(rng.choice([1, 32768]))
+        ln = int(rng.integers(3, 259))
+        if p < S:
+            tok[p] = _tok_match(ln, d)
+        p += ln
+    got, rounds = _same_bytes_rounds(cuda, _one_block(tok, S), S)
+    assert rounds >= 1 and not bool(got[1]) and not bool(got[2])
+
+
+@pytest.mark.cuda
+def test_resolve_bytes_kernel_valid_out(cuda):
+    """valid_out below out_size, as an int and as an int64 on the card
+    (read there: no synchronisation): the bytes at or past it are 0, the
+    rest as without it."""
+    flat, S = _flat_plan_cuda(cuda)
+    p, tok = _plan_and_tokens(flat, S)
+    args = _bytes_args(p, tok)
+    whole = _same_bytes(args, S)[0]
+    for cut in (1, S // 3 + 1, S - 1, S):
+        got = _same_bytes(args, S, valid_out=cut)[0]
+        assert torch.equal(got[:cut], whole[:cut]) and not got[cut:].any()
+    cut_t = torch.tensor(S // 2 + 3, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = CS.resolve_bytes(*args, S, valid_out=cut_t)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, CS.resolve_bytes_ref(*args, S,
+                                                 valid_out=cut_t)[0])
 
 
 # ------------------------------------------------- find_matches and lz_parse

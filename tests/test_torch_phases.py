@@ -397,3 +397,213 @@ def test_phase_wrappers_take_plain_versions_on_cpu():
         CS.resolve_bytes(p.w, tok.long(), *args[2:], S)
     with pytest.raises(ValueError):
         CS.resolve_bytes(*args[:-1], a.is_sto.int(), S)
+
+
+def test_valid_out_defaults_to_out_size_and_accepts_a_tensor():
+    """resolve_bytes_ref's valid_out: absent is out_size; an int and a
+    0-dim int64 cut the same bytes."""
+    c = _case("encoder")
+    p = _plan(c)
+    tok = DI.phase_b(p, S, W).tok
+    args = (p.w, tok, p.blk_bit, p.blk_out, p.blk_end, p.a.blive, p.a.is_sto)
+    whole = CS.resolve_bytes_ref(*args, S)[0]
+    assert torch.equal(CS.resolve_bytes_ref(*args, S, valid_out=S)[0], whole)
+    cut = S // 3 + 5
+    by_int = CS.resolve_bytes_ref(*args, S, valid_out=cut)[0]
+    by_tensor = CS.resolve_bytes(*args, S, valid_out=torch.tensor(cut))[0]
+    assert torch.equal(by_int, by_tensor)
+    assert torch.equal(by_int[:cut], whole[:cut]) and not by_int[cut:].any()
+
+
+@pytest.mark.parametrize("kind", ["encoder", "zlib9", "mixed", "blocks"])
+def test_valid_out_below_out_size_matches_jax(kind):
+    """An output capacity past the decoded bytes: phase_c's output (the
+    zero tail now cut by resolve_bytes_ref's valid_out) equals the JAX
+    decoder's whole output, and a valid_out cut inside the bytes keeps
+    exactly the bytes below it."""
+    c = dict(_case(kind))
+    c["size"] = c["valid"] + 3 * CS.TILE + 7
+    p = _plan(c)
+    b = DI.phase_b(p, c["size"], W)
+    full = DI.phase_c(p, b, c["size"])
+    want = _jax(c)
+    assert bool(full["ok"]) and bool(want["ok"])
+    np.testing.assert_array_equal(full["out"].numpy(), want["out"])
+    assert full["out"][:c["valid"]].numpy().tobytes() == c["raw"]
+    assert not full["out"][c["valid"]:].any()
+    args = (p.w, b.tok, p.blk_bit, p.blk_out, p.blk_end, p.a.blive,
+            p.a.is_sto)
+    cut = c["valid"] // 2 + 1
+    v, bad_dist, unconverged = CS.resolve_bytes_ref(*args, c["size"],
+                                                    valid_out=cut)
+    assert not bool(bad_dist) and not bool(unconverged)
+    assert v.numpy()[:cut].tobytes() == c["raw"][:cut]
+    assert not v[cut:].any()
+
+
+# ------------------------------------- the kernel's code-length walk, modelled
+#
+# csrc/build_tables.cu walks a dynamic header's code-length stream in
+# parallel: the symbol at every bit offset a walk can reach, the path of
+# offsets from the first RLE bit, a scan of the repeat counts (each step's
+# place), a scan of the last fill that is not a 16 (each step's previous
+# length), the first bad step, and the lengths each step covers. This numpy
+# model follows those steps and is held field for field against the plain
+# version, which walks step by step.
+
+SPAN = 7 * BT.RLE_STEPS           # the bit offsets the kernel decodes
+
+
+def _peek(words: np.ndarray, bp: int) -> int:
+    n = len(words)
+    wi = min(max(bp >> 5, 0), n - 1)
+    wj = min(wi + 1, n - 1)
+    sh = bp & 31
+    lo, hi = int(words[wi]) & 0xFFFFFFFF, int(words[wj]) & 0xFFFFFFFF
+    return ((lo >> sh) | (hi << (32 - sh))) & 0xFFFFFFFF
+
+
+def walk_model(words: np.ndarray, bit: int) -> dict:
+    """A dynamic block's header as the kernel reads it: hlit, hdist, the
+    316 lengths, the bit after the header and whether the header is bad
+    (before the Kraft check of the two trees)."""
+    bp0 = bit + 3
+    hw = _peek(words, bp0)
+    hlit, hdist = (hw & 31) + 257, ((hw >> 5) & 31) + 1
+    hclen = ((hw >> 10) & 15) + 4
+    rle = 14 + 3 * hclen
+    clen = np.zeros(C.NUM_CLEN, np.int64)
+    for j in range(hclen):
+        clen[C.CLEN_ORDER[j]] = _peek(words, bp0 + 14 + 3 * j) & 7
+    count = np.bincount(clen, minlength=8)
+    kraft = sum(int(count[ln]) << (7 - ln) for ln in range(1, 8))
+    codes = canonical_codes_np(clen, 7)
+    lut = np.zeros(128, np.int64)
+    for j in np.flatnonzero(clen):
+        rc = _rev(int(codes[j]), int(clen[j]))
+        hit = (np.arange(128) & ((1 << int(clen[j])) - 1)) == rc
+        lut[hit] += j | (int(clen[j]) << 5)
+    lens = np.zeros(BT.RLE_W, np.int64)
+    if hlit > 286 or hdist > 30 or kraft > 128:
+        return dict(hlit=hlit, hdist=hdist, lens=lens, end=bp0 + rle,
+                    bad=True)
+    # the symbol at every offset: next offset, repeat count, symbol
+    nxt = np.zeros(SPAN, np.int64)
+    rep = np.zeros(SPAN, np.int64)
+    sym = np.zeros(SPAN, np.int64)
+    for o in range(SPAN):
+        lo = _peek(words, bp0 + rle + o)
+        e = int(lut[lo & 127])
+        cl, s = e >> 5, e & 31
+        eb = {16: 2, 17: 3, 18: 7}.get(s, 0)
+        ev = (lo >> cl) & ((1 << eb) - 1)
+        nxt[o] = o + cl + eb
+        rep[o] = 1 if s < 16 else 3 + ev if s <= 17 else 11 + ev
+        sym[o] = s
+    # the path from the first RLE bit
+    total = hlit + hdist
+    path, o, i = [], 0, 0
+    while len(path) < BT.RLE_STEPS:
+        path.append(o)
+        i += int(rep[o])
+        if i >= total or nxt[o] == o:
+            break
+        o = int(nxt[o])
+    at = np.array(path)
+    k = np.arange(len(at))
+    r, s, nx = rep[at], sym[at], nxt[at]
+    i_end = np.cumsum(r)
+    key = np.where(s == 16, -1, (k << 5) | np.where(s < 16, s, 0))
+    prev_key = np.concatenate([[-1], np.maximum.accumulate(key)[:-1]])
+    prev = np.where(prev_key < 0, -1, prev_key & 31)
+    fill = np.where(s < 16, s, np.where(s == 16, prev, 0))
+    budget = 32 * len(words) - bp0
+    bad = ((nx == at) | ((s == 16) & (prev < 0)) | (i_end > total)
+           | (rle + nx > budget))
+    first_bad = int(np.argmax(bad)) if bad.any() else len(at)
+    last = min(first_bad, len(at) - 1)
+    step = np.searchsorted(i_end[:last + 1], np.arange(BT.RLE_W),
+                           side="right")
+    cover = step <= last
+    lens[cover] = np.maximum(fill[np.minimum(step, last)][cover], 0)
+    return dict(hlit=hlit, hdist=hdist, lens=lens,
+                end=bp0 + rle + int(nx[last]), bad=first_bad < len(at))
+
+
+def _kraft_over(lengths: np.ndarray) -> bool:
+    return sum(1 << (15 - int(x)) for x in lengths if x) > (1 << 15)
+
+
+def _walk_cases(kind: str):
+    """(words, blk_bit, btype, n_blocks) of one walk case."""
+    if kind.startswith("flips"):        # test_header_bit_flips_match_jax's
+        seed = int(kind[5:])
+        c = _case("blocks" if seed % 2 else "encoder")
+        clean = _plan(c).a
+        rng = np.random.default_rng(seed)
+        dyn = np.flatnonzero(np.asarray(c["btype"])[:c["n_blocks"]] == 2)
+        w = np.asarray(c["words"]).copy()
+        for _ in range(int(rng.integers(1, 4))):
+            b = int(rng.choice(dyn))
+            span = int(clean.hdr_end[b]) - int(c["blk_bit"][b])
+            bit = int(c["blk_bit"][b]) + 3 + int(rng.integers(0, span - 3))
+            w[bit >> 5] ^= 1 << (bit & 31)
+        return w, c["blk_bit"], c["btype"], c["n_blocks"]
+    if kind == "garbage":
+        rng = np.random.default_rng(5)
+        w = rng.integers(0, 2**32, 300, dtype=np.uint64).astype(np.int64)
+        bit = rng.integers(0, 32 * 300, 120)
+        bit[:10] = rng.integers(32 * 300 - 200, 32 * 300 + 3000, 10)
+        bit[10:15] = rng.integers(-3000, 0, 5)
+        return w, bit, np.full(120, 2), 120
+    if kind == "repeat16":
+        words = np.concatenate([first_symbol_16_words(),
+                                np.zeros(14, "<u4")]).astype(np.int64)
+        return words, np.array([0]), np.array([2]), 1
+    c = _case(kind)
+    return c["words"], c["blk_bit"], c["btype"], c["n_blocks"]
+
+
+@pytest.mark.parametrize("kind", ["encoder", "zlib9", "fixed", "stored",
+                                  "garbage", "repeat16"]
+                         + [f"flips{s}" for s in range(8)])
+def test_walk_model_matches_build_tables_ref(kind):
+    """The kernel's parallel code-length walk, modelled in numpy, gives the
+    plain version's lengths (read back from its canonical tables), header
+    end and bad flag on every block: clean streams of every block type,
+    garbage parsed as headers (some past the end of the words, some before
+    its start), the seeded header bit flips, and a repeat with no previous
+    length."""
+    words, bits, btypes, n = _walk_cases(kind)
+    a = BT.build_tables_ref(torch.from_numpy(np.asarray(words, np.int64)),
+                            torch.from_numpy(np.asarray(bits, np.int64)),
+                            torch.from_numpy(np.asarray(btypes, np.int64)),
+                            n)
+    t = a.tables
+    n_dyn = 0
+    for b in range(len(bits)):
+        bt = int(btypes[b])
+        if not (b < n and bt >= 0):
+            assert not bool(a.blive[b])
+            continue
+        if bt != C.BTYPE_DYNAMIC:
+            assert int(a.hdr_end[b]) == int(bits[b]) + 3
+            assert bool(a.bbad[b]) == (bt == 3)
+            continue
+        n_dyn += 1
+        m = walk_model(np.asarray(words), int(bits[b]))
+        ll = np.where(np.arange(DS.N_LL) < m["hlit"],
+                      np.concatenate([m["lens"][:C.NUM_LITLEN],
+                                      np.zeros(DS.N_LL - C.NUM_LITLEN,
+                                               np.int64)]), 0)
+        di = np.minimum(m["hlit"] + np.arange(DS.N_D), BT.RLE_W - 1)
+        d = np.where(np.arange(DS.N_D) < m["hdist"], m["lens"][di], 0)
+        np.testing.assert_array_equal(
+            _lengths_from_tables(t.ll_cnt[b].numpy(), t.ll_sym[b].numpy()),
+            ll)
+        np.testing.assert_array_equal(
+            _lengths_from_tables(t.d_cnt[b].numpy(), t.d_sym[b].numpy()), d)
+        assert int(a.hdr_end[b]) == m["end"], b
+        assert bool(a.bbad[b]) == (m["bad"] or _kraft_over(ll)
+                                   or _kraft_over(d)), b
+    assert n_dyn > 0 or kind in ("fixed", "stored")
