@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints one line and ends with torch.cuda.synchronize()):
   1. device: the card's name and power limit;
-  2. build: start nvcc on every CUDA source of csrc/ at once (seven),
+  2. build: start nvcc on every CUDA source of csrc/ at once (ten),
      wait for all;
   3. tile_histogram against its plain PyTorch version, exact equality, on
      int32 and int64 symbols, rows 1-128, C = 30, 286 and MAX_CLASSES, and
@@ -16,9 +16,9 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      torch.bincount of the flattened row-offset index (context: it is not
      the same function); the wrapper once under sync debug mode "error";
   4. the encode slice: ZlibCodec.compress of an ~8.5 MB corpus on the card,
-     checked by zlib.decompress, with the launch counts of its three
-     kernels (find_matches, lz_parse and tile_histogram: 1, 1 and 2 per
-     shard);
+     checked by zlib.decompress, with the launch counts of its six
+     kernels (find_matches, lz_parse, tile_histogram, block_plan,
+     huffman_codes and block_layout: 1, 1, 2, 1, 2 and 1 per shard);
   5. encode_shard on the card against the port on the CPU, bit for bit, for
      the first and the last shard, and the whole stream of phase 4;
   6. build: decode_symbols.cu, lut_gather.cu, build_tables.cu and
@@ -56,8 +56,8 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      versions'), and
      decompress_indexed with the encoder's index;
  11. the codec's surface: the raw, zlib and gzip codecs compress the 8.5
-     MB corpus on the card and decompress it on the host (zlib / gzip
-     oracles), the self-check on 2 MB, verify_stream of its zlib and gzip
+     MB corpus on the card (the encode kernels' launches checked) and
+     decompress it on the host (zlib / gzip oracles), the self-check on 2 MB, verify_stream of its zlib and gzip
      blobs, png_decode of a PNG built here, the per-symbol trace of 256 KB
      on the card (one shard: find_matches and lz_parse once each) against
      the CPU;
@@ -79,7 +79,19 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      calls them (the packed hand-off), beside the bound (bytes over 3.35
      TB/s or integer operations over the int32 rate, whichever is larger);
      each call's kernels under the profiler (find_matches: hash, sort, links, walk; lz_parse: the
-     match and parse kernels), and tokenize's peak device memory at 4 MB.
+     match and parse kernels), and tokenize's peak device memory at 4 MB;
+ 15. the encoder's block stage: block_plan, huffman_codes and block_layout
+     against their plain versions on the inputs every encode_shard of
+     phase 4's and phase 10's corpora handed them, of a block_type="fixed"
+     and a "stored" encode of 2 MB, and on the cases of
+     `corpus.block_plan_case`, `huffman_case` and `layout_case`: the split,
+     n_blocks, code lengths, codes, reversed codes and the layout exactly,
+     the segment costs at rtol 1e-5 (the largest relative error printed),
+     and the smallest margin of a DP step between its best and
+     second-best candidate; each kernel's and plain version's times as in
+     phase 3 at phase 4's first shard and phase 10's, beside its bound
+     (bytes over 3.35 TB/s or operations over the float32 or int32 rate)
+     and its serial depth (DP steps, code-length levels, layout steps).
 Any failure raises, so the script exits non-zero. Before the last line it
 prints the kernels' JSON line: per kernel its launches on the main path
 (the 1 MB-shard encode of phase 4 and decode of phase 8), on the 4 MB-
@@ -88,8 +100,9 @@ shard path of phase 10 (`launches_4mb`), in phase 12's 1-rank NCCL encode
 error against the plain
 version, and its device time per launch (`ms`), its plain version's
 (`plain_ms`), the bound (`bound_ms`: the bytes it must move over 3.35
-TB/s, or for find_matches and lz_parse the larger of that and their
-integer operations over the int32 rate, `bound_by` saying which) and
+TB/s, or for find_matches, lz_parse and the block stage's kernels the
+larger of that and their operations over the int32 rate, or the float32
+rate for block_plan, `bound_by` saying which) and
 `share_of_bound`, each computed from this run; find_matches and lz_parse
 are timed as tokenize calls them (packed result; bound bytes 5 and 22 a
 position), carry `by_kernel`, the same at the 4 MB shard (`*_4mb`), and
@@ -100,8 +113,11 @@ build_tables and copy_sources carry `ms_4mb`,
 `call_ms_4mb` and `plain_call_ms_4mb`, one call each there by CUDA events,
 and copy_sources `bound_with_gathers_ms`, its bound with the pointer
 rounds' gathers added, `rounds_run` (the gather rounds the kernels ran on
-phase 7's batch; `rounds_run_4mb` on phase 10's) and `plain_rounds`. The
-last line is the JSON result {"ok": true, "device": {...}}.
+phase 7's batch; `rounds_run_4mb` on phase 10's) and `plain_rounds`;
+block_plan, huffman_codes and block_layout carry `serial_depth` and the
+same at phase 10's first shard (`*_4mb`), huffman_codes its 7-bit call
+(`ms_7bit`, `*_7bit_4mb`), block_plan `max_rel_err_cost` and `min_gap`.
+The last line is the JSON result {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -148,6 +164,8 @@ HBM_GBS = 3350.0                 # H100 SXM device memory, GB/s (data sheet)
 INT32_LANES = 64
 BOOST_GHZ = 1.98
 ENCODE_KERNELS = ("find_matches", "lz_parse")
+BLOCK_KERNELS = ("block_plan", "huffman_codes", "block_layout")
+F32_TFLOPS = 67.0                # H100 SXM float32 outside the tensor cores
 # lz_parse's integer operations per position, counted in csrc/lz_parse.cu:
 # the run test and search (about 4), three chain rounds (6 each), the
 # clamps (6), lazy (5), the outputs and the parse's three walks (7)
@@ -157,17 +175,21 @@ TABLE_BYTES = 17_792             # one block's decode tables (decode_symbols.cu)
 
 def timings(kernel: str, fn, plain, n: int, prof_n: int,
             bound_bytes: int, reps: int = 25, plain_n: int | None = None,
-            bound_ops: int = 0) -> dict:
+            bound_ops: int = 0, ops_rate: float | None = None) -> dict:
     """A kernel's and its plain version's times: per call (`cuda_ms`), on
     the device per launch (`device_ms`, n calls, plain_n of a slow plain
-    version) and by kernel name under
+    version; plain_n=0 for a plain version that launches more kernels than
+    the launch queue holds behind the spin: there its profiler sum stands
+    for its device time) and by kernel name under
     torch.profiler (`profiled_ms`, prof_n calls; the kernel's own entries,
     and every device entry of the plain version); and the bound, the
     larger of the bytes the function must move over the card's memory rate
-    and its integer operations over the int32 rate."""
+    and its operations over `ops_rate` (per second; the int32 rate by
+    default)."""
     t = {"call_ms": cuda_ms(fn, reps), "plain_call_ms": cuda_ms(plain, reps)}
     t["device_ms"], t["held"] = device_ms(fn, n)
-    t["plain_device_ms"], t["plain_held"] = device_ms(plain, plain_n or n)
+    t["plain_device_ms"], t["plain_held"] = (
+        device_ms(plain, plain_n or n) if plain_n != 0 else (None, False))
     by = profiled_ms(fn, prof_n)
     t["prof_ms"] = sum(v for k, v in by.items() if kernel in k)
     t["by_kernel"] = {re.search(r"\w*_kernel|$", k).group() or k: v
@@ -182,7 +204,7 @@ def timings(kernel: str, fn, plain, n: int, prof_n: int,
                      else t["plain_prof_ms"])
     t["bound_ms"] = bound_ms(bound_bytes)
     t["bound_by"] = "bytes"
-    ops_ms = bound_ops / int32_rate() * 1e3
+    ops_ms = bound_ops / (ops_rate or int32_rate()) * 1e3
     if ops_ms > t["bound_ms"]:
         t["bound_ms"], t["bound_by"] = ops_ms, "operations"
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
@@ -198,6 +220,8 @@ def int32_rate() -> float:
 def show(t: dict) -> str:
     """One line of a `timings` result."""
     def dev(ms, held):
+        if ms is None:
+            return "not queued (more launches than the queue holds)"
         return f"{ms:.4f}" + ("" if held else " (waits for the device, "
                               "host included)")
     return (f"kernel {t['call_ms']:.4f} ms per call, "
@@ -231,12 +255,15 @@ def main() -> int:
     from deflate_compression_tpu_torch import CodecConfig
     from deflate_compression_tpu_torch.corpus import build_corpus
     from deflate_compression_tpu_torch.models.codec import ZlibCodec
+    from deflate_compression_tpu_torch.ops import block_layout as BL
+    from deflate_compression_tpu_torch.ops import block_plan as BP
     from deflate_compression_tpu_torch.ops import build_tables as BT
     from deflate_compression_tpu_torch.ops import copy_sources as CS
     from deflate_compression_tpu_torch.ops import cuda_build
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
     from deflate_compression_tpu_torch.ops import find_matches as FM
     from deflate_compression_tpu_torch.ops import histogram as H
+    from deflate_compression_tpu_torch.ops import huffman_codes as HC
     from deflate_compression_tpu_torch.ops import lut_gather as LG
     from deflate_compression_tpu_torch.ops import lz_parse as LP
 
@@ -255,18 +282,18 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = [cuda_build.Build(src) for src in (
         H.SOURCE, DS.SOURCE, LG.SOURCE, BT.SOURCE, CS.SOURCE, FM.SOURCE,
-        LP.SOURCE)]
+        LP.SOURCE, BP.SOURCE, HC.SOURCE, BL.SOURCE)]
     lib = builds[0].wait()
     t_hist = time.perf_counter() - t0
-    ds_lib, lg_lib, bt_lib, cs_lib, fm_lib, lp_lib = (
+    ds_lib, lg_lib, bt_lib, cs_lib, *rest_libs = (
         b.wait() for b in builds[1:])
     t_ds = time.perf_counter() - t0
-    print(f"phase 2 build: nvcc started on tile_histogram.cu, "
-          f"decode_symbols.cu, lut_gather.cu, build_tables.cu, "
-          f"copy_sources.cu, find_matches.cu and lz_parse.cu together; "
+    print(f"phase 2 build: nvcc started on the {len(builds)} sources "
+          f"together ({', '.join(b.source.name for b in builds)}); "
           f"{lib.name} in {t_hist:.2f} s, {ds_lib.name}, {lg_lib.name}, "
-          f"{bt_lib.name}, {cs_lib.name}, {fm_lib.name} and {lp_lib.name} "
-          f"done {t_ds:.2f} s after the start")
+          f"{bt_lib.name}, {cs_lib.name}, "
+          f"{', '.join(x.name for x in rest_libs)} done {t_ds:.2f} s after "
+          f"the start")
     torch.cuda.synchronize()
 
     # ------------------------------------------ 3. kernel vs plain version
@@ -366,6 +393,7 @@ def main() -> int:
     dist = dist_phase(raw, cfg, blob, dev, len(raw) / dt)
     cli = cli_phase(raw, blob, stats, px, dev)
     lz = lz77_phase(raw, cfg, dev)
+    blk = block_stage_phase(raw, cfg, dev)
 
     def new_paths(name):
         paths = {"launches_4mb": large[name],
@@ -421,7 +449,30 @@ def main() -> int:
               ("find_matches", "deflate_compression_tpu/core/lz77.py:88 "
                "(left to XLA there: no Pallas kernel)"),
               ("lz_parse", "deflate_compression_tpu/core/lz77.py:497 and "
-               ":340 (left to XLA there: no Pallas kernel)")))]}))
+               ":340 (left to XLA there: no Pallas kernel)"))),
+        *({"name": name, "route": "cuda",
+           "source": f"deflate_compression_tpu_torch/csrc/{name}.cu",
+           "replaces": replaces,
+           "launches": enc_launches[name], **new_paths(name),
+           "max_abs_err": blk["max_abs_err"][name],
+           **entry(blk["times"][name, "1mb"]), "library_ms": None,
+           "serial_depth": blk["depth"][name, "1mb"],
+           "by_kernel": blk["times"][name, "1mb"]["by_kernel"],
+           **{f"{k}_4mb": blk["times"][name, "4mb"][k]
+              for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                        "share_of_bound", "call_ms", "plain_call_ms",
+                        "prof_ms", "plain_prof_ms")},
+           "serial_depth_4mb": blk["depth"][name, "4mb"],
+           **blk["extra"][name]}
+          for name, replaces in (
+              ("block_plan", "deflate_compression_tpu/core/cost.py:34-160 "
+               "(left to XLA there: no Pallas kernel)"),
+              ("huffman_codes", "deflate_compression_tpu/core/huffman.py:"
+               "75-192 and core/bits.py:30-44 (left to XLA there: no "
+               "Pallas kernel)"),
+              ("block_layout", "deflate_compression_tpu/format/deflate.py:"
+               "520-534, a lax.scan (left to XLA there: no Pallas "
+               "kernel)")))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -1178,7 +1229,8 @@ def large_shard_phase(dev, mbs_1mb: float) -> dict:
     torch.cuda.synchronize()
     return {**launches,
             **{k: enc_launches[k] for k in ("tile_histogram",
-                                            *ENCODE_KERNELS)},
+                                            *ENCODE_KERNELS,
+                                            *BLOCK_KERNELS)},
             "phases": ph, "device_ms": dev_ms, "bound_ms": bounds,
             "rounds_run": k_stats["rounds"]}
 
@@ -1215,7 +1267,8 @@ def png_bytes(px: np.ndarray) -> bytes:
 
 def surface_phase(raw: bytes, dev) -> tuple:
     """Phase 11: the codec's surface around the card's encoder: the three
-    containers' compress on the card and decompress on the host, the
+    containers' compress on the card (each kernel's launches checked)
+    and decompress on the host, the
     self-check, verify_stream, png_decode and the per-symbol trace. Returns
     the pixels of the PNG it decoded and the trace's launches."""
     import gzip
@@ -1231,11 +1284,17 @@ def surface_phase(raw: bytes, dev) -> tuple:
             (DeflateCodec, "raw", lambda b: zlib.decompress(b, wbits=-15)),
             (ZlibCodec, "zlib", zlib.decompress),
             (GzipCodec, "gzip", gzip.decompress)):
-        codec = cls(CodecConfig(container=container), device=dev)
+        cfg = CodecConfig(container=container)
+        codec = cls(cfg, device=dev)
+        zero_counts()
         t0 = time.perf_counter()
         blob = codec.compress(raw)
         torch.cuda.synchronize()
         t_enc = time.perf_counter() - t0
+        launches = read_counts()
+        if launches != encode_counts(math.ceil(len(raw) / cfg.shard_size)):
+            raise AssertionError(f"{container}: the encode launched "
+                                 f"{launches}")
         if oracle(blob) != raw:
             raise AssertionError(f"{container}: the oracle's bytes differ")
         t0 = time.perf_counter()
@@ -1281,7 +1340,7 @@ def surface_phase(raw: bytes, dev) -> tuple:
     tr_launches = read_counts()
     if on_card != per_symbol_trace_csv(tr, device="cpu", **kw):
         raise AssertionError("per_symbol_trace_csv: card != CPU")
-    if tr_launches != {**encode_counts(1), "tile_histogram": 0}:
+    if tr_launches != {**decode_counts(0), **{k: 1 for k in ENCODE_KERNELS}}:
         raise AssertionError(f"per_symbol_trace_csv launched {tr_launches}")
     print(f"phase 11 codec surface: {len(raw)} bytes in 1 MB shards, "
           f"compress on the card, decompress on the host ({inflater} "
@@ -1301,28 +1360,36 @@ def surface_phase(raw: bytes, dev) -> tuple:
 
 def counters() -> dict:
     """Each kernel's wrapper, whose `launches` counts its launches."""
+    from deflate_compression_tpu_torch.ops import block_layout as BL
+    from deflate_compression_tpu_torch.ops import block_plan as BP
     from deflate_compression_tpu_torch.ops import build_tables as BT
     from deflate_compression_tpu_torch.ops import copy_sources as CS
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
     from deflate_compression_tpu_torch.ops import find_matches as FM
     from deflate_compression_tpu_torch.ops import histogram as H
+    from deflate_compression_tpu_torch.ops import huffman_codes as HC
     from deflate_compression_tpu_torch.ops import lut_gather as LG
     from deflate_compression_tpu_torch.ops import lz_parse as LP
     return {"tile_histogram": H.tile_histogram,
             "find_matches": FM.find_matches, "lz_parse": LP.lz_parse,
+            "block_plan": BP.block_plan, "huffman_codes": HC.huffman_codes,
+            "block_layout": BL.block_layout,
             "decode_symbols": DS.decode_symbols, "lut_gather": LG.lut_gather,
             "build_tables": BT.build_tables, "copy_sources": CS.resolve_bytes}
 
 
 def encode_counts(nsh: int) -> dict:
-    """Each kernel's launches in an encode of nsh shards."""
+    """Each kernel's launches in an encode of nsh shards of more than one
+    tile, the blocks chosen by cost."""
     return {"tile_histogram": 2 * nsh, **{k: nsh for k in ENCODE_KERNELS},
+            "block_plan": nsh, "huffman_codes": 2 * nsh, "block_layout": nsh,
             **{k: 0 for k in DECODE_KERNELS}}
 
 
 def decode_counts(n: int) -> dict:
     """Each kernel's launches in n decodes (flat batches or groups)."""
     return {"tile_histogram": 0, **{k: 0 for k in ENCODE_KERNELS},
+            **{k: 0 for k in BLOCK_KERNELS},
             **{k: n for k in DECODE_KERNELS}}
 
 
@@ -1349,7 +1416,10 @@ sys.path.insert(0, sys.argv[5])
 from deflate_compression_tpu_torch.parallel.dist import (
     compress_distributed, make_mesh)
 from deflate_compression_tpu_torch.parallel.launcher import init_distributed
+from deflate_compression_tpu_torch.ops import block_layout as BL
+from deflate_compression_tpu_torch.ops import block_plan as BP
 from deflate_compression_tpu_torch.ops import histogram as H
+from deflate_compression_tpu_torch.ops import huffman_codes as HC
 rank, world, init, out, dev, S = int(sys.argv[1]), int(sys.argv[2]), \
     sys.argv[3], sys.argv[4], sys.argv[6], int(sys.argv[7])
 raw = open(out + ".in", "rb").read()
@@ -1358,17 +1428,20 @@ info = init_distributed(init, world, rank, device=dev, backend="gloo",
 mesh = make_mesh(info["group"], dev)
 compress_distributed(raw[:S], mesh, shard_size=S)    # warm-up
 torch.cuda.synchronize()
-H.tile_histogram.launches = 0
+FNS = {"tile_histogram": H.tile_histogram, "block_plan": BP.block_plan,
+       "huffman_codes": HC.huffman_codes, "block_layout": BL.block_layout}
+for f in FNS.values():
+    f.launches = 0
 t0 = time.perf_counter()
 blob, idx = compress_distributed(raw, mesh, shard_size=S, return_index=True)
 torch.cuda.synchronize()
 dt = time.perf_counter() - t0
-launches = H.tile_histogram.launches
+launches = {k: f.launches for k, f in FNS.items()}
 open(f"{out}.{rank}.zz", "wb").write(blob)
 open(f"{out}.{rank}.dcx", "wb").write(idx.to_bytes())
 torch.distributed.destroy_process_group()
-print("RANK " + json.dumps({"rank": rank, "tile_histogram": launches,
-                            "seconds": dt}), flush=True)
+print("RANK " + json.dumps({"rank": rank, **launches, "seconds": dt}),
+      flush=True)
 """
 
 
@@ -1508,21 +1581,22 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
             pass
         else:
             raise AssertionError("the injected crash did not happen")
-        first = read_counts()["tile_histogram"]
+        first = read_counts()
         zero_counts()
         info_r = compress_file_resumable(str(src), str(dst), cfg, device=dev)
-        second = read_counts()["tile_histogram"]
+        second = read_counts()
         resumed = dst.read_bytes()
     if any(o != blob for o in outs) or dcx[0] != dcx[1] or \
             dcx[0] != idx.to_bytes():
         raise AssertionError("2 gloo ranks: bytes or index differ from the "
                              "1-rank NCCL run")
-    if [r["tile_histogram"] for r in ranks] != [
-            2 * len(range(r, nsh, 2)) for r in range(2)]:
+    per_rank = [len(range(r, nsh, 2)) for r in range(2)]
+    if [[x[k] for k in ("tile_histogram", *BLOCK_KERNELS)] for x in ranks
+        ] != [[2 * n, n, 2 * n, n] for n in per_rank]:
         raise AssertionError(f"2 gloo ranks launched {ranks}")
     if info_r["resumed_at_shard"] != 4 or resumed != blob or \
             zlib.decompress(resumed) != raw or (first, second) != (
-                8, 2 * (nsh - 4)):
+                encode_counts(4), encode_counts(nsh - 4)):
         raise AssertionError(f"resumable encode: {info_r}, launches "
                              f"{first} + {second}")
 
@@ -1553,13 +1627,16 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
           f"blocks, {gidx.n_subs} entries) == the NCCL run's; its index in "
           f"one flat decode_blocks_batch: ok, adler32 per shard and bytes "
           f"OK; compress_file_resumable crashed after shard 3 "
-          f"({first} launches) and resumed at shard "
-          f"{info_r['resumed_at_shard']} ({second} launches): bytes == "
+          f"({first['tile_histogram']} tile_histogram launches, each "
+          f"encode kernel as many as its shards ask) and resumed at shard "
+          f"{info_r['resumed_at_shard']} ({second['tile_histogram']}): "
+          f"bytes == "
           f"phase 4, zlib.decompress OK")
     torch.cuda.synchronize()
     return {"launches": launches,
             "gloo_ranks": [x["tile_histogram"] for x in ranks],
-            "resumable": [first, second]}
+            "resumable": [first["tile_histogram"],
+                          second["tile_histogram"]]}
 
 
 # --------------------------------------------------------- 13. the CLI
@@ -1568,11 +1645,14 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
 # runs it) that prints each kernel's launches in the process at exit
 _COUNTING_MAIN = r"""
 import atexit, json, runpy, sys
+from deflate_compression_tpu_torch.ops import block_layout as BL
+from deflate_compression_tpu_torch.ops import block_plan as BP
 from deflate_compression_tpu_torch.ops import build_tables as BT
 from deflate_compression_tpu_torch.ops import copy_sources as CS
 from deflate_compression_tpu_torch.ops import decode_symbols as DS
 from deflate_compression_tpu_torch.ops import find_matches as FM
 from deflate_compression_tpu_torch.ops import histogram as H
+from deflate_compression_tpu_torch.ops import huffman_codes as HC
 from deflate_compression_tpu_torch.ops import lut_gather as LG
 from deflate_compression_tpu_torch.ops import lz_parse as LP
 
@@ -1580,6 +1660,9 @@ from deflate_compression_tpu_torch.ops import lz_parse as LP
 def _counts():
     print("LAUNCHES " + json.dumps({
         "tile_histogram": H.tile_histogram.launches,
+        "block_plan": BP.block_plan.launches,
+        "huffman_codes": HC.huffman_codes.launches,
+        "block_layout": BL.block_layout.launches,
         "find_matches": FM.find_matches.launches,
         "lz_parse": LP.lz_parse.launches,
         "decode_symbols": DS.decode_symbols.launches,
@@ -1785,6 +1868,179 @@ def lz77_phase(raw: bytes, cfg, dev) -> dict:
           f"either function")
     torch.cuda.synchronize()
     return {"max_abs_err": err, "times": times, "tokenize_peak_mib": peak}
+
+
+
+# ----------------------------------------- 15. the encoder's block stage
+
+def block_plan_ops(a) -> int:
+    """block_plan's float32 operations on its arguments (ll, d, n_valid,
+    tile_bytes, max_merge): a log2, a subtraction, a product and a sum for
+    each used symbol of each segment, and the DP's add and compare for
+    each candidate."""
+    ll, d, _, _, mm = a
+    M = ll.shape[0]
+    cnt = torch.cat([ll, d], 1).long()
+    cum = torch.cat([torch.zeros_like(cnt[:1]), cnt.cumsum(0)])
+    j = torch.arange(1, M + 1, device=cnt.device).unsqueeze(1)
+    i = (j - torch.arange(1, mm + 1, device=cnt.device)).clamp(min=0)
+    used = int(((cum[j] - cum[i]) > 0).sum())
+    return 4 * used + 2 * M * mm
+
+
+def huffman_codes_ops(freqs, max_bits: int) -> int:
+    """The least integer operations of huffman_codes on these rows: for k
+    used symbols in a row, a comparison sort (k ceil(log2 k)), two per
+    item of each of the max_bits - 1 package-merge levels (2k), and k +
+    max_bits for the canonical codes."""
+    k = (freqs > 0).sum(1).double()
+    lg = torch.log2(k.clamp(min=1)).ceil()
+    return int((k * lg + 2 * k * (max_bits - 1) + k + max_bits).sum())
+
+
+def block_stage_phase(raw: bytes, cfg, dev) -> dict:
+    """Phase 15: block_plan, huffman_codes and block_layout against their
+    plain versions, on the inputs every encode_shard of phase 4's and
+    phase 10's corpora and of a fixed and a stored 2 MB encode handed
+    them, and on corpus's block-stage cases; their times at phase 4's
+    first shard ("1mb") and phase 10's ("4mb"). Returns each kernel's
+    largest error, timings, serial depth and extra keys."""
+    from deflate_compression_tpu_torch import corpus
+    from deflate_compression_tpu_torch.corpus import build_corpus
+    from deflate_compression_tpu_torch.format import constants as C
+    from deflate_compression_tpu_torch.format.deflate import MAX_MERGE
+    from deflate_compression_tpu_torch.ops import block_layout as BL
+    from deflate_compression_tpu_torch.ops import block_plan as BP
+    from deflate_compression_tpu_torch.ops import huffman_codes as HC
+
+    calls = []                      # (label, row, args)
+    first = {}
+    for size, data, S in (("1mb", raw, cfg.shard_size),
+                          ("4mb", build_corpus(LARGE_CORPUS_BYTES),
+                           LARGE_SHARD)):
+        for s_ in range(math.ceil(len(data) / S)):
+            x, vl, fin = shard_input(data, S, s_)
+            got = corpus.block_stage_inputs(x.to(dev), vl, fin)
+            if set(got) != {"block_plan", "huffman_codes 11-bit",
+                            "huffman_codes 7-bit", "block_layout"}:
+                raise AssertionError(f"shard {s_} of {size}: the encode "
+                                     f"called {sorted(got)}")
+            calls += [(f"{size} shard {s_}", row, a)
+                      for row, (_, _, a, _) in got.items()]
+            if s_ == 0:
+                first[size] = {row: a for row, (_, _, a, _) in got.items()}
+    for btype, label in ((C.BTYPE_FIXED, "fixed"), (C.BTYPE_STORED,
+                                                    "stored")):
+        x, vl, _ = shard_input(raw[:2 << 20], 2 << 20, 0)
+        got = corpus.block_stage_inputs(x.to(dev), vl, True,
+                                        force_btype=btype)
+        if "block_plan" in got:
+            raise AssertionError(f"a {label} encode ran block_plan")
+        calls += [(f"2 MB {label}", row, a)
+                  for row, (_, _, a, _) in got.items()]
+    for name in corpus.BLOCK_PLAN_CASES:
+        ll, d, nv, tb = corpus.block_plan_case(name)
+        calls.append((name, "block_plan", (
+            *(torch.from_numpy(t).to(dev) for t in (ll, d)), nv,
+            torch.from_numpy(tb).to(dev), 8)))
+    for name in corpus.HUFFMAN_CASES:
+        f, mb = corpus.huffman_case(name)
+        calls.append((name, f"huffman_codes {mb}-bit",
+                      (torch.from_numpy(f).to(dev), mb)))
+    for name in corpus.LAYOUT_CASES:
+        calls.append((name, "block_layout", tuple(
+            torch.from_numpy(t).to(dev) for t in corpus.layout_case(name))))
+
+    def plan_args(a):
+        """core/cost.py passes max_merge by keyword; the case calls by
+        position: both as (ll, d, n_valid, tile_bytes, max_merge)."""
+        return a if len(a) == 5 else (*a, MAX_MERGE)
+    err = {k: 0 for k in BLOCK_KERNELS}
+    rel, gaps, n_calls = 0.0, [], {k: 0 for k in BLOCK_KERNELS}
+    for label, row, a in calls:
+        name = row.split()[0]
+        n_calls[name] += 1
+        if name == "block_plan":
+            a = plan_args(a)
+            st, st_ref = {}, {}
+            got = BP.block_plan(*a, stats=st)
+            want = BP.block_plan_ref(*a, stats=st_ref)
+            torch.cuda.synchronize()
+            if not torch.equal(got[0], want[0]) or int(got[1]) != int(
+                    want[1]):
+                raise AssertionError(
+                    f"block_plan's split differs from the plain version's "
+                    f"on {label}: smallest DP margin {float(st['gap'])} "
+                    f"(plain {float(st_ref['gap'])})")
+            r = float(((st["cost"] - st_ref["cost"]).abs()
+                       / st_ref["cost"].abs()).max())
+            if r > 1e-5:
+                raise AssertionError(f"block_plan's segment costs on {label}"
+                                     f": relative error {r} over 1e-5")
+            rel = max(rel, r)
+            gaps.append((float(st["gap"]), label))
+        else:
+            op, ref = ((HC.huffman_codes, HC.huffman_codes_ref)
+                       if name == "huffman_codes" else
+                       (BL.block_layout, BL.block_layout_ref))
+            err[name] = max(err[name], same(
+                list(op(*a)), list(ref(*a)), f"{row}, {label}"))
+
+    times, depth, shown = {}, {}, []
+    for size in ("1mb", "4mb"):
+        a = plan_args(first[size]["block_plan"])
+        M = a[0].shape[0]
+        times["block_plan", size] = timings(
+            "block_plan_", lambda: BP.block_plan(*a),
+            lambda: BP.block_plan_ref(*a), 20, 5,
+            M * (C.NUM_LITLEN + C.NUM_DIST + 1) * a[0].element_size()
+            + M + 8, reps=5, plain_n=0, bound_ops=block_plan_ops(a),
+            ops_rate=F32_TFLOPS * 1e12)
+        depth["block_plan", size] = M
+        for bits in (11, 7):
+            f, mb = first[size][f"huffman_codes {bits}-bit"]
+            key = "huffman_codes" if bits == 11 else "huffman_codes_7bit"
+            times[key, size] = timings(
+                "huffman_codes_kernel", lambda: HC.huffman_codes(f, mb),
+                lambda: HC.huffman_codes_ref(f, mb), 20, 5,
+                f.numel() * (f.element_size() + 24), reps=5, plain_n=0,
+                bound_ops=huffman_codes_ops(f, mb))
+        depth["huffman_codes", size] = 11
+        rest, sto = first[size]["block_layout"]
+        NB = rest.shape[0]
+        times["block_layout", size] = timings(
+            "block_layout_kernel", lambda: BL.block_layout(rest, sto),
+            lambda: BL.block_layout_ref(rest, sto), 20, 5, 25 * NB + 8,
+            reps=5, plain_n=0, bound_ops=6 * NB)
+        depth["block_layout", size] = NB
+        shown.append(
+            f"{size} shard 0: block_plan ({M} tiles, {M} DP steps) "
+            f"{show(times['block_plan', size])}; huffman_codes "
+            f"11-bit ({tuple(first[size]['huffman_codes 11-bit'][0].shape)}, "
+            f"11 levels) {show(times['huffman_codes', size])}; 7-bit "
+            f"({tuple(first[size]['huffman_codes 7-bit'][0].shape)}, 7 "
+            f"levels) {show(times['huffman_codes_7bit', size])}; "
+            f"block_layout ({NB} steps) {show(times['block_layout', size])}")
+    gap, gap_at = min(gaps)
+    print(f"phase 15 block stage: tolerance 0 (exact) on the split, "
+          f"n_blocks, code lengths, codes, reversed codes and layout, rtol "
+          f"1e-5 on the segment costs; == the plain versions on "
+          f"{sum(n_calls.values())} calls ({n_calls}: every shard of phases "
+          f"4 and 10, a fixed and a stored 2 MB encode, "
+          f"{len(corpus.BLOCK_PLAN_CASES)} + {len(corpus.HUFFMAN_CASES)} + "
+          f"{len(corpus.LAYOUT_CASES)} cases); max abs err {err}; segment "
+          f"costs' largest relative error {rel:.3e}; smallest DP margin "
+          f"between best and second-best candidate {gap:.4f} bits ({gap_at})"
+          f"; {'; '.join(shown)}; no single PyTorch call computes any of "
+          f"the three functions")
+    torch.cuda.synchronize()
+    t7 = {f"{k}_7bit{'' if size == '1mb' else '_4mb'}": times[
+        "huffman_codes_7bit", size][k] for size in ("1mb", "4mb")
+        for k in ("ms", "plain_ms", "bound_ms", "share_of_bound", "call_ms")}
+    return {"max_abs_err": err, "times": times, "depth": depth,
+            "extra": {"block_plan": {"max_rel_err_cost": rel,
+                                     "min_gap": gap},
+                      "huffman_codes": t7, "block_layout": {}}}
 
 
 if __name__ == "__main__":

@@ -4,11 +4,16 @@ deflate_compression_tpu/core/cost.py).
 The cost of coding tiles [i, j) as one dynamic block is estimated as
 sum f*log2(n/f) + exact extra bits + a tree-description estimate, and a DP
 over tile boundaries (merge runs of at most `max_merge` tiles) picks the
-segmentation. This is the encoder's one float stage: it stays in float32
+segmentation (ops/block_plan.py: the DP and the backtrack, its kernel on
+the card). This is the encoder's one float stage: it stays in float32
 with the JAX package's expression order, since a changed rounding can
-flip a near-tie split.
+flip a near-tie split. torch's log2 and sums still round otherwise than
+XLA's, so a DP step whose two best candidates lie within a few ulps can
+split otherwise than the JAX package (ROADMAP, queue 3).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,7 +21,14 @@ from ..format import constants as C
 
 _TREE_FIXED = 17.0 + 3 * 15
 _TREE_PER_SYM = 5.5
-_BIG = 3.4e38
+
+
+@functools.cache
+def _extra_bits(dev: torch.device):
+    """The length and distance codes' extra bits as float32 on `dev`, built
+    once per device."""
+    return (torch.as_tensor(C.LENGTH_EXTRA, dtype=torch.float32, device=dev),
+            torch.as_tensor(C.DIST_EXTRA, dtype=torch.float32, device=dev))
 
 
 def segment_costs(ll_freq_micro: torch.Tensor, d_freq_micro: torch.Tensor,
@@ -27,8 +39,7 @@ def segment_costs(ll_freq_micro: torch.Tensor, d_freq_micro: torch.Tensor,
     M = ll_freq_micro.shape[0]
     dev = ll_freq_micro.device
     f32 = torch.float32
-    len_extra = torch.as_tensor(C.LENGTH_EXTRA, dtype=f32, device=dev)
-    dist_extra = torch.as_tensor(C.DIST_EXTRA, dtype=f32, device=dev)
+    len_extra, dist_extra = _extra_bits(dev)
 
     llf = ll_freq_micro.to(f32)
     df = d_freq_micro.to(f32)
@@ -63,43 +74,13 @@ def segment_costs(ll_freq_micro: torch.Tensor, d_freq_micro: torch.Tensor,
 
 def block_plan(ll_freq_micro: torch.Tensor, d_freq_micro: torch.Tensor,
                n_micro_valid, tile_bytes: torch.Tensor, max_merge: int = 8):
-    """Choose dynamic-block boundaries over 32 KB tiles.
-
-    ll_freq_micro (M, 286), d_freq_micro (M, 30): per-tile histograms.
-    n_micro_valid: number of tiles covering real bytes (int or 0-d tensor).
-    tile_bytes: (M,) real bytes per tile (prices the stored alternative).
-    Returns (split bool[M], n_blocks): split[m] marks the first tile of
-    each block; split[0] is always True.
-    """
-    M = ll_freq_micro.shape[0]
-    dev = ll_freq_micro.device
-    cost_all = segment_costs(ll_freq_micro, d_freq_micro, max_merge,
-                             tile_bytes)
-    ks = torch.arange(1, max_merge + 1, device=dev)
-
-    # DP: opt[j] = min_k opt[j-k] + cost(j-k, j); opt_tail holds
-    # opt[j-1], ..., opt[j-max_merge]. argmin takes the first minimum, as
-    # jnp.argmin does.
-    opt_tail = torch.full((max_merge,), _BIG, dtype=torch.float32, device=dev)
-    opt_tail[0] = 0.0
-    back = []
-    for j in range(1, M + 1):
-        cand = torch.where(j - ks >= 0, opt_tail + cost_all[j - 1],
-                           torch.tensor(_BIG, dtype=torch.float32, device=dev))
-        best_k = torch.argmin(cand)
-        opt_tail = torch.cat([cand[best_k].unsqueeze(0), opt_tail[:-1]])
-        back.append(best_k + 1)
-    back_k = torch.stack(back)                       # back_k[j-1]: width
-
-    # backtrack from n_micro_valid, marking block starts
-    m_idx = torch.arange(M, device=dev)
-    split = m_idx == 0
-    jcur = torch.as_tensor(n_micro_valid, device=dev).long()
-    for _ in range(M):
-        k = back_k[(jcur - 1).clamp(min=0)]
-        start = (jcur - k).clamp(min=0)
-        live = jcur > 0
-        split = split | ((m_idx == start) & live)
-        jcur = torch.where(live, start, 0)
-    n_blocks = (split & (m_idx < n_micro_valid)).sum()
-    return split, n_blocks
+    """Choose dynamic-block boundaries over 32 KB tiles: the block_plan op
+    (ops/block_plan.py; the CUDA kernel on the card), which takes int64:
+    other integer counts are converted (the encoder's already are).
+    Returns (split bool[M], n_blocks); split[m] marks the first tile of
+    each block."""
+    # imported here: the op's plain version uses segment_costs above
+    from ..ops.block_plan import block_plan as op
+    ll, dd, tb = (x.long().contiguous()
+                  for x in (ll_freq_micro, d_freq_micro, tile_bytes))
+    return op(ll, dd, n_micro_valid, tb, max_merge)

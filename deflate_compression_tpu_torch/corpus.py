@@ -220,3 +220,147 @@ LZ_CASES = ["tail_tie", "collision_k1", "collision_k2", "dist_32768",
             "clamp_dist", "chain", "short_valid", "greedy", "k1", "k255",
             "s40000", "s1", "s2", "long_chains", "link_two_tiles",
             "parse_subtile", "s36865"]
+
+
+# --------------------------------------- cases of the encoder's block stage
+
+def tile_histograms(M: int, seed: int, stored_every: int = 0) -> tuple:
+    """(ll int64[M, 286], d int64[M, 30]): tiles drawn from three kinds of
+    source (text-like, match-heavy, near-uniform), in runs, so that merging
+    and splitting both pay; with stored_every = s, every run of s tiles
+    starting at a multiple of 2 s is incompressible (32,768 uniform
+    literals, no match), so the DP prices those tiles stored."""
+    rng = np.random.default_rng(seed)
+    kinds = []
+    while len(kinds) < M:
+        kinds += [int(rng.integers(0, 3))] * int(rng.integers(1, 5))
+    ll = np.zeros((M, C.NUM_LITLEN), np.int64)
+    d = np.zeros((M, C.NUM_DIST), np.int64)
+    base = [rng.dirichlet(np.full(C.NUM_LITLEN, a)) for a in (0.05, 0.3, 50)]
+    dbase = [rng.dirichlet(np.full(C.NUM_DIST, 0.5)) for _ in range(3)]
+    for m, k in enumerate(kinds[:M]):
+        if stored_every and m // stored_every % 2 == 0:
+            ll[m, :256] = rng.multinomial(32768, np.full(256, 1 / 256))
+            continue
+        ntok = int(rng.integers(4000, 30000))
+        ll[m] = rng.multinomial(ntok, base[k])
+        d[m] = rng.multinomial(int(ll[m, 257:].sum()), dbase[k])
+        ll[m, 256] = 0
+    return ll, d
+
+
+def block_plan_case(name: str) -> tuple:
+    """(ll int64[M, 286], d int64[M, 30], n_micro_valid, tile_bytes
+    int64[M]) of one case of the block-split DP, as encode_shard hands
+    them over (tiles past the valid bytes are empty):
+    mM            M tiles, all valid (32: a 1 MB shard, 128: 4 MB);
+    mM_short      the valid bytes end inside tile n_valid - 1;
+    m32_stored    every tile incompressible: each its own stored block;
+    m128_mixed    runs of 3 incompressible tiles between text-like runs;
+    m2, m17       the sizes of the older parity cases."""
+    M, n_valid, stored_every = {
+        "m32": (32, 32, 0), "m128": (128, 128, 0), "m32_short": (32, 21, 0),
+        "m128_short": (128, 77, 0), "m32_stored": (32, 32, 1),
+        "m128_mixed": (128, 128, 3), "m2": (2, 1, 0),
+        "m17": (17, 17, 0)}[name]
+    seed = sum(map(ord, name))
+    ll, d = tile_histograms(M, seed, stored_every)
+    tile_bytes = np.full(M, C.WINDOW_SIZE, np.int64)
+    tile_bytes[n_valid - 1] = 20000
+    tile_bytes[n_valid:] = 0
+    ll[n_valid:] = 0
+    d[n_valid:] = 0
+    return ll, d, n_valid, tile_bytes
+
+
+BLOCK_PLAN_CASES = ["m32", "m128", "m32_short", "m128_short", "m32_stored",
+                    "m128_mixed", "m2", "m17"]
+
+
+def huffman_case(name: str) -> tuple:
+    """(freqs int64[B, n], max_bits) of one case of the code construction,
+    its first rows the edge cases, the rest like the encoder's:
+    litlen_11  B = 64, n = 286, 11 bits: no symbol, one (two places),
+               two (adjacent and far apart), all tied, all 286 used with
+               geometric weights (the limit binds), a skewed and a sparse
+               row, then block-like litlen rows and zero-padded 30-symbol
+               distance rows (the encoder's batched build);
+    clen_7     B = 32, n = 19, 7 bits: the same edge rows, all 19 used and
+               geometric (the limit binds), then RLE-like counts."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    B, n, max_bits = {"litlen_11": (64, 286, 11), "clen_7": (32, 19, 7)}[name]
+    s = np.arange(n)
+    edge = [np.zeros(n), np.eye(1, n, n // 2)[0] * 77, np.eye(1, n, 0)[0],
+            np.eye(1, n, 3)[0] * 5 + np.eye(1, n, 4)[0] * 5,
+            np.eye(1, n, 0)[0] * 5 + np.eye(1, n, n - 1)[0],
+            np.full(n, 9), np.floor(2.0 ** 21 * 0.75 ** s) + 1,
+            np.floor(1e6 * 0.6 ** s), rng.integers(0, 3, n)
+            * rng.integers(0, 50, n)]
+    rows = [np.asarray(r, np.int64) for r in edge]
+    while len(rows) < B:
+        if n == C.NUM_CLEN:
+            r = rng.multinomial(int(rng.integers(20, 320)),
+                                rng.dirichlet(np.full(n, 0.4)))
+        elif len(rows) % 2:
+            r = np.zeros(n, np.int64)
+            r[:C.NUM_DIST] = rng.multinomial(int(rng.integers(1, 60000)),
+                                             rng.dirichlet(np.full(30, 0.5)))
+        else:
+            r = rng.multinomial(int(rng.integers(1, 8 * 32768)),
+                                rng.dirichlet(np.full(n, 0.2)))
+            r[256] = 1
+        rows.append(r.astype(np.int64))
+    return np.stack(rows), max_bits
+
+
+HUFFMAN_CASES = ["litlen_11", "clen_7"]
+
+
+def layout_case(name: str) -> tuple:
+    """(rest int64[NB], stored bool[NB]) of one case of the block layout:
+    NB blocks (32, 128, 1, or 5,000 to cross the kernel's 2,048-block
+    chunks), about half of them stored; a stored block's rest is its 3
+    header bits, 32 of LEN/NLEN and its bytes, a Huffman block's any
+    count."""
+    NB = {"nb32": 32, "nb128": 128, "nb1": 1, "nb5000": 5000}[name]
+    rng = np.random.default_rng(NB)
+    stored = rng.random(NB) < 0.5
+    huff = rng.integers(10, 300_000, NB)
+    rest = np.where(stored, 35 + 8 * rng.integers(0, 32769, NB), huff)
+    return rest.astype(np.int64), stored
+
+
+LAYOUT_CASES = ["nb32", "nb128", "nb1", "nb5000"]
+
+
+def block_stage_inputs(x, valid_len: int, final: bool = True,
+                       **options) -> dict:
+    """The arguments encode_shard(x, valid_len, final, **options) hands
+    each op of its block stage, by row name ("block_plan", "huffman_codes
+    11-bit", "huffman_codes 7-bit", "block_layout"), each as (op, plain
+    version, args, kwargs). The encode runs once with format.deflate's
+    three names wrapped by recorders, restored after it."""
+    from .format import deflate
+    from .ops import block_layout as BL
+    from .ops import block_plan as BP
+    from .ops import huffman_codes as HC
+    plain = {"block_plan": BP.block_plan_ref,
+             "huffman_codes": HC.huffman_codes_ref,
+             "block_layout": BL.block_layout_ref}
+    saved = {n: getattr(deflate, n) for n in plain}
+    got = {}
+
+    def recorder(name, fn):
+        def call(*a, **k):
+            row = name if name != "huffman_codes" else f"{name} {a[1]}-bit"
+            got.setdefault(row, (fn, plain[name], a, k))
+            return fn(*a, **k)
+        return call
+    try:
+        for n, fn in saved.items():
+            setattr(deflate, n, recorder(n, fn))
+        deflate.encode_shard(x, valid_len, final, **options)
+    finally:
+        for n, fn in saved.items():
+            setattr(deflate, n, fn)
+    return got

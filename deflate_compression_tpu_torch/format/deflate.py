@@ -3,16 +3,23 @@ deflate_compression_tpu/format/deflate.py).
 
 One shard (S bytes, S % 32768 == 0) is tokenized once, cut into
 NB = S / 32768 tiles, planned into coding blocks (core/cost.py), given
-per-block length-limited Huffman tables (core/huffman.py) and serialized as
-items (value, nbits, bit offset) packed into LSB-first words
-(core/bits.py). The only sequential pieces are two NB-step loops: the
-block layout (stored-block byte alignment) and the cost DP. A non-final
-shard ends with an empty stored block, so shard substreams concatenate.
+per-block length-limited Huffman tables (ops/huffman_codes.py), laid out
+block after block (ops/block_layout.py: stored-block byte alignment) and
+serialized as items (value, nbits, bit offset) packed into LSB-first words
+(core/bits.py). The two sequential pieces, the cost DP and the layout, are
+kernels on the card. A non-final shard ends with an empty stored block, so
+shard substreams concatenate.
 
 The output is bit-identical to the JAX encoder's for the same input and
-options. u32 values are carried in int64 tensors (core/u32.py).
+options, but where two candidates of the block plan's float32 DP lie
+within a float32 ulp of each other: there torch's and XLA's rounding can
+pick different splits (core/cost.py; ROADMAP, queue 3). Each such output
+is still a valid stream of the same input. u32 values are carried in
+int64 tensors (core/u32.py).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -23,6 +30,8 @@ from ..core.cost import block_plan
 from ..core import scans
 from ..core.u32 import low_mask, shl32
 from ..device import pick_device
+from ..ops.block_layout import block_layout
+from ..ops.huffman_codes import huffman_codes
 from . import constants as C
 
 BLOCK = C.WINDOW_SIZE            # 32768 input bytes per tile
@@ -36,12 +45,30 @@ _SLOT_EOB = _H_ITEMS - 1
 TREE_LIMIT = 11                  # emitted Huffman code-length cap
 MAX_MERGE = 8                    # most tiles merged into one coding block
 
+
+def _reversed_codes(lengths: np.ndarray) -> np.ndarray:
+    """Each canonical code of `lengths` bit-reversed within its length."""
+    codes = huffman.canonical_codes_np(lengths, 15)
+    return np.array([int(format(int(c), f"0{l}b")[::-1], 2) if l else 0
+                     for c, l in zip(codes, lengths)], np.int64)
+
+
 _FIXED_LL_LEN = C.FIXED_LITLEN_LENGTHS[:C.NUM_LITLEN]
-_FIXED_LL_CODE = huffman.canonical_codes_np(C.FIXED_LITLEN_LENGTHS,
-                                            15)[:C.NUM_LITLEN]
+_FIXED_LL_REV = _reversed_codes(C.FIXED_LITLEN_LENGTHS)[:C.NUM_LITLEN]
 _FIXED_D_LEN = C.FIXED_DIST_LENGTHS[:C.NUM_DIST]
-_FIXED_D_CODE = huffman.canonical_codes_np(C.FIXED_DIST_LENGTHS,
-                                           15)[:C.NUM_DIST]
+_FIXED_D_REV = _reversed_codes(C.FIXED_DIST_LENGTHS)[:C.NUM_DIST]
+
+
+@functools.cache
+def _consts(dev: torch.device) -> dict:
+    """The encoder's constant tables as int64 tensors on `dev`, built once
+    per device: no host-to-device copy inside a shard's encode."""
+    tabs = {"len_extra": C.LENGTH_EXTRA, "dist_extra": C.DIST_EXTRA,
+            "fixed_ll_len": _FIXED_LL_LEN, "fixed_ll_rev": _FIXED_LL_REV,
+            "fixed_d_len": _FIXED_D_LEN, "fixed_d_rev": _FIXED_D_REV,
+            "clen_order": C.CLEN_ORDER, "tail_vals": [0, 0, 0xFFFF0000]}
+    return {k: torch.as_tensor(np.asarray(v, np.int64), device=dev)
+            for k, v in tabs.items()}
 
 
 def out_words(shard_size: int) -> int:
@@ -161,7 +188,7 @@ def _tree_rle(comb: torch.Tensor, total: torch.Tensor):
 def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
                  num_candidates: int = 32, lazy: bool = True,
                  force_btype: int | None = None,
-                 _test_stride: int | None = None):
+                 _test_stride: int | None = None, _marks=None):
     """Encode one shard into a DEFLATE bitstream, on data's device.
 
     Args:
@@ -174,6 +201,8 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
       force_btype: None for cost-based selection, or BTYPE_STORED / FIXED /
         DYNAMIC to force every block's type.
       _test_stride: test seam forcing the sub-entry stride.
+      _marks: profiling seam: called with each stage's name as the stage
+        ends (profile_encode times the stages with it).
 
     Returns dict: words (int64[OW] holding u32 words), total_bits, and the
     per-block stats and decode index of the JAX encoder.
@@ -190,6 +219,8 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     NB = S // BLOCK
     OUT_WORDS = out_words(S)
     i64 = {"dtype": torch.int64, "device": dev}
+    K = _consts(dev)
+    mark = _marks or (lambda stage: None)
 
     data = data.to(torch.uint8)
     pos = torch.arange(S, device=dev)
@@ -199,10 +230,9 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     # ------------------------------------------------------------- LZ77
     tok = lz77.tokenize(data, valid_len, num_candidates=num_candidates,
                         lazy=lazy)
+    mark("tokenize")
     chosen, length, dist = tok["chosen"], tok["length"], tok["dist"]
     is_match = chosen & (length >= C.MIN_MATCH)
-    len_extra = torch.as_tensor(C.LENGTH_EXTRA, **i64)
-    dist_extra = torch.as_tensor(C.DIST_EXTRA, **i64)
 
     lcode, lev, leb = _len_fields(length)
     ll_sym_pos = torch.where(is_match, lcode, data.long())
@@ -212,6 +242,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     d_sym_pos = torch.where(is_match, dcode, 0)
     d_ev_pos = torch.where(is_match, dev_, 0)
     d_eb_pos = torch.where(is_match, deb_, 0)
+    mark("token fields")
 
     # --------------------------------------------------- block planning
     # per-tile histograms (the tile_histogram kernel); masked positions
@@ -222,6 +253,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     d_sym_t = torch.where(is_match, d_sym_pos, C.NUM_DIST)
     d_freq_micro = huffman.histogram_rows(d_sym_t.view(NB, BLOCK),
                                           C.NUM_DIST)
+    mark("tile histograms")
 
     if force_btype == C.BTYPE_FIXED and NB > 1:
         split = b_idx == 0           # fixed blocks carry no tree: one block
@@ -233,6 +265,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
                               tile_bytes, max_merge=MAX_MERGE)
     else:
         split = torch.ones(NB, dtype=torch.bool, device=dev)
+    mark("block_plan")
 
     blk_id_micro = torch.cumsum(split.long(), dim=0) - 1
     blk_of_pos = blk_id_micro.repeat_interleave(BLOCK)
@@ -259,16 +292,16 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     ll_freq_t = _force_two_codes(ll_freq)
     d_freq_t = _force_two_codes(d_freq)
 
+    mark("block histograms")
     # litlen and zero-padded dist alphabets share one batched build
     d_freq_pad = torch.cat(
         [d_freq_t, torch.zeros((NB, C.NUM_LITLEN - C.NUM_DIST), **i64)], 1)
-    both_len = huffman.huffman_code_lengths(
-        torch.cat([ll_freq_t, d_freq_pad], 0), TREE_LIMIT)
-    ll_len_dyn = both_len[:NB]
-    d_len_dyn = both_len[NB:, :C.NUM_DIST]
-    both_code = huffman.canonical_codes(both_len, TREE_LIMIT)
-    ll_code_dyn = both_code[:NB]
-    d_code_dyn = both_code[NB:, :C.NUM_DIST]
+    both = huffman_codes(torch.cat([ll_freq_t, d_freq_pad], 0), TREE_LIMIT)
+    ll_len_dyn = both.lengths[:NB]
+    d_len_dyn = both.lengths[NB:, :C.NUM_DIST]
+    ll_rev_dyn = both.rev[:NB]
+    d_rev_dyn = both.rev[NB:, :C.NUM_DIST]
+    mark("huffman_codes 11-bit")
 
     # ------------------------------------------ tree description (RLE)
     ar_ll = torch.arange(C.NUM_LITLEN, device=dev)
@@ -288,20 +321,22 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     rle_sym, rle_ev, rle_eb = _tree_rle(comb, total_lens)
     rle_emitted = rle_sym >= 0
     rle_sym_c = rle_sym.clamp(min=0)
+    mark("tree RLE")
 
     clen_key = b_idx.unsqueeze(1) * C.NUM_CLEN + rle_sym_c
     clen_freq = huffman.histogram(clen_key, NB * C.NUM_CLEN,
                                   mask=rle_emitted).view(NB, C.NUM_CLEN)
-    clen_len = huffman.huffman_code_lengths(_force_two_codes(clen_freq), 7)
-    clen_code = huffman.canonical_codes(clen_len, 7)
+    mark("clen histogram")
+    clen_len, _, clen_rev = huffman_codes(_force_two_codes(clen_freq), 7)
+    mark("huffman_codes 7-bit")
 
-    lens_perm = clen_len[:, torch.as_tensor(C.CLEN_ORDER, **i64)]
+    lens_perm = clen_len[:, K["clen_order"]]
     ar_c = torch.arange(C.NUM_CLEN, device=dev)
     hclen = (torch.where(lens_perm > 0, ar_c, 0).amax(1) + 1).clamp(min=4)
 
     # --------------------------------------------------------- bit costs
-    ll_extra_tot = (ll_freq[:, 257:286] * len_extra).sum(1)
-    d_extra_tot = (d_freq * dist_extra).sum(1)
+    ll_extra_tot = (ll_freq[:, 257:286] * K["len_extra"]).sum(1)
+    d_extra_tot = (d_freq * K["dist_extra"]).sum(1)
     dyn_payload = ((ll_freq * ll_len_dyn).sum(1) + ll_extra_tot
                    + (d_freq * d_len_dyn).sum(1) + d_extra_tot)
     rle_code_bits = torch.gather(clen_len, 1, rle_sym_c)
@@ -309,8 +344,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     tree_bits = 14 + 3 * hclen + rle_bits_mat.sum(1)
     dyn_cost = 3 + tree_bits + dyn_payload
 
-    fll = torch.as_tensor(_FIXED_LL_LEN, **i64)
-    fdl = torch.as_tensor(_FIXED_D_LEN, **i64)
+    fll, fdl = K["fixed_ll_len"], K["fixed_d_len"]
     fix_cost = (3 + (ll_freq * fll).sum(1) + ll_extra_tot
                 + (d_freq * fdl).sum(1) + d_extra_tot)
 
@@ -323,23 +357,18 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     btype = torch.argmin(costs, dim=1)           # 0/1/2 == RFC BTYPE
     if force_btype is not None:
         btype = torch.full_like(btype, force_btype)
+    mark("bit costs")
 
     # effective per-block code tables
     use_dyn = (btype == C.BTYPE_DYNAMIC).unsqueeze(1)
     ll_len_eff = torch.where(use_dyn, ll_len_dyn, fll)
     d_len_eff = torch.where(use_dyn, d_len_dyn, fdl)
-    ll_code_eff = torch.where(use_dyn, ll_code_dyn,
-                              torch.as_tensor(_FIXED_LL_CODE.astype(np.int64),
-                                              **i64))
-    d_code_eff = torch.where(use_dyn, d_code_dyn,
-                             torch.as_tensor(_FIXED_D_CODE.astype(np.int64),
-                                             **i64))
     # one table word per symbol: reversed code | len << 16; a zero column
     # at the end serves the masked symbol (NUM_LITLEN / NUM_DIST)
     zcol = torch.zeros((NB, 1), **i64)
-    ll_tab = torch.cat([bits_mod.reverse_bits(ll_code_eff, ll_len_eff)
+    ll_tab = torch.cat([torch.where(use_dyn, ll_rev_dyn, K["fixed_ll_rev"])
                         | (ll_len_eff << 16), zcol], 1)
-    d_tab = torch.cat([bits_mod.reverse_bits(d_code_eff, d_len_eff)
+    d_tab = torch.cat([torch.where(use_dyn, d_rev_dyn, K["fixed_d_rev"])
                        | (d_len_eff << 16), zcol], 1)
 
     # ------------------------------------------------------- token items
@@ -376,6 +405,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
 
     eob_tab = ll_tab[:, C.EOB]
     eob_nbs = torch.where(huff_b, eob_tab >> 16, 0)
+    mark("tables and items")
 
     # ------------------------------------------------------ header items
     hdr_lo = torch.zeros((NB, _H_ITEMS), **i64)
@@ -397,8 +427,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
         dyn_emit.unsqueeze(1) & (j19 < hclen.unsqueeze(1)), 3, 0)
 
     # RLE symbol + its extra bits as one <= 14-bit item per slot
-    clen_code_rev = bits_mod.reverse_bits(clen_code, clen_len, 7)
-    rle_code = torch.gather(clen_code_rev, 1, rle_sym_c)
+    rle_code = torch.gather(clen_rev, 1, rle_sym_c)
     hdr_lo[:, 21:21 + _RLE_SLOTS] = rle_code | (rle_ev << rle_code_bits)
     hdr_nbs[:, 21:21 + _RLE_SLOTS] = torch.where(
         dyn_emit.unsqueeze(1) & rle_emitted, rle_code_bits + rle_eb, 0)
@@ -410,26 +439,19 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     # EOB: last item of each block's row, offset set to the token end
     hdr_lo[:, _SLOT_EOB] = eob_tab & 0x7FFF
     hdr_nbs[:, _SLOT_EOB] = eob_nbs
+    mark("header items")
 
     # ------------------------------------------- block layout (NB steps)
     hdr_fixed = hdr_nbs.sum(1)              # without pad, with the EOB
     pay_bits_b = torch.where(sto_emit, 8 * blen, 0)
-    rest_b = hdr_fixed + T_b + pay_bits_b
-    p = torch.zeros((), **i64)
-    bases, pads = [], []
-    for b in range(NB):
-        pad = torch.where(sto_emit[b], (8 - ((p + 3) % 8)) % 8, 0)
-        bases.append(p)
-        pads.append(pad)
-        p = p + rest_b[b] + pad
-    block_base = torch.stack(bases)
-    pad_b = torch.stack(pads)
-    p_end = p
+    block_base, pad_b, p_end = block_layout(hdr_fixed + T_b + pay_bits_b,
+                                            sto_emit)
     hdr_nbs[:, _SLOT_PAD] = pad_b
+    mark("block_layout")
 
     # tail: sync flush when not final (empty stored block, byte aligned)
     sf_pad = (8 - ((p_end + 3) % 8)) % 8
-    tail_vals = torch.tensor([0, 0, 0xFFFF0000], **i64)
+    tail_vals = K["tail_vals"]
     tail_offs = torch.stack([p_end, p_end + 3, p_end + 3 + sf_pad])
     if final:
         tail_nbs = torch.zeros(3, **i64)
@@ -446,6 +468,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     # position offsets: the global exclusive cumsum rebased per block
     rebase_b = token_base - P_excl[start_pos_b]
     off_pos = rebase_b[blk_id_micro].repeat_interleave(BLOCK) + P_excl
+    mark("item offsets")
 
     n_h = NB * _H_ITEMS + 3
     words_h = bits_mod.pack_items64_to_words(
@@ -454,6 +477,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
         torch.cat([hdr_nbs.reshape(-1), tail_nbs]),
         torch.cat([hdr_offs.reshape(-1), tail_offs]),
         OUT_WORDS)
+    mark("pack64 (header items)")
 
     # pair adjacent positions into one <= 96-bit item: inside a block the
     # position offsets are gapless and pairs never straddle a block
@@ -472,6 +496,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     words_t = bits_mod.pack_items96_to_words(c0, c1, c2, n1 + n2,
                                              off_pos[0::2], OUT_WORDS)
     words = words_h | words_t
+    mark("pack96 (token pairs)")
 
     # stored payloads: per emitted stored block, add its tile's bytes
     # (masked to blen, shifted to the byte-aligned start) into the words
@@ -494,6 +519,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     buf = torch.cat([words, torch.zeros(PWs + 1, **i64)])
     buf.index_add_(0, widx.reshape(-1), win.reshape(-1))
     words = buf[:OUT_WORDS]
+    mark("stored payloads")
 
     # ---------------------------------------- sub-block decode entries
     # every `stride`-th Huffman token plus each block's first token, the
@@ -523,6 +549,7 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
 
     n_tokens = chosen.sum() + LB + 1
     n_matches = is_match.sum()
+    mark("sub-entry index")
     return {
         "words": words,
         "total_bits": total_bits,

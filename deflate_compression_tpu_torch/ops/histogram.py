@@ -50,14 +50,16 @@ def _check(sym: torch.Tensor, num_classes: int) -> None:
 
 def tile_histogram_ref(sym: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Plain PyTorch version: per-row bincount of the symbols in
-    [0, num_classes), in sym's type; [rows, num_classes]."""
+    [0, num_classes), in sym's type; [rows, num_classes], contiguous as the
+    kernel's."""
     rows = sym.shape[0]
     s = sym.long()
     s = torch.where((s >= 0) & (s < num_classes), s, num_classes)
     row = torch.arange(rows, device=sym.device).unsqueeze(1)
     flat = (row * (num_classes + 1) + s).reshape(-1)
     counts = torch.bincount(flat, minlength=rows * (num_classes + 1))
-    return counts.view(rows, num_classes + 1)[:, :num_classes].to(sym.dtype)
+    return counts.view(rows, num_classes + 1)[:, :num_classes].to(
+        sym.dtype).contiguous()
 
 
 def tile_histogram(sym: torch.Tensor, num_classes: int) -> torch.Tensor:

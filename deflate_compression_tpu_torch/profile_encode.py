@@ -3,18 +3,28 @@
     python3 -m deflate_compression_tpu_torch.profile_encode [--shards N]
         [--shard-size BYTES]
 
-Prints host-clock times (each ending in torch.cuda.synchronize()) of the
-whole encode_shard and of some of its stages run alone on inputs of the
-main-path shapes (tokenize is the find_matches and lz_parse kernels with
-the packed hand-off, timed alone beside their int64 calls; their plain
-versions, which the card never runs on the encode path, are timed beside
-them as context), each with the device memory its call allocated
-at its peak, then the torch.profiler table of device time by operator over
-N encodes, and the device busy share of that window. Needs a CUDA card.
+Prints host-clock times (best of 3 after a warm-up, each ending in
+torch.cuda.synchronize()):
+  * the whole encode_shard of the corpus's first shard;
+  * each of its stages in that encode (`encode_shard`'s `_marks` seam
+    synchronizes as each stage ends, so a stage's time is its host
+    dispatch and device work with nothing overlapped; the stages sum to
+    more than the whole);
+  * the block stage's three ops (block_plan, huffman_codes at 11 and 7
+    bits, block_layout) on the inputs that encode handed them, each beside
+    its plain version on the same inputs on the card;
+  * some stages run alone on inputs of the main-path shapes (tokenize is
+    the find_matches and lz_parse kernels with the packed hand-off, timed
+    alone beside their int64 calls; their plain versions, which the card
+    never runs on the encode path, are timed beside them as context), each
+    with the device memory its call allocated at its peak;
+then the torch.profiler table of device time by operator over N encodes,
+and the device busy share of that window. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import subprocess
 import time
 
@@ -22,10 +32,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .corpus import build_corpus
+from .corpus import block_stage_inputs, build_corpus
 from .core import huffman, lz77
-from .core.cost import block_plan
 from .format.deflate import encode_shard
+
 
 def _timed(fn, reps: int = 3) -> float:
     fn()
@@ -37,6 +47,28 @@ def _timed(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
     return best * 1e3
+
+
+def stage_times(x: torch.Tensor, valid_len: int, reps: int = 3) -> dict:
+    """Milliseconds of each stage of encode_shard(x), best of `reps` after
+    a warm-up, each stage ended by a synchronize at its mark."""
+    best = {}
+    for rep in range(reps + 1):
+        times = {}
+        last = [0.0]
+
+        def mark(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times[stage] = (now - last[0]) * 1e3
+            last[0] = now
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        encode_shard(x, valid_len, True, _marks=mark)
+        if rep:
+            for k, v in times.items():
+                best[k] = min(best.get(k, float("inf")), v)
+    return best
 
 
 def main() -> None:
@@ -56,15 +88,25 @@ def main() -> None:
               for i in range(args.shards)]
     x = shards[0]
     nb = shard // 32768
+
+    def row(name, ms, peak=None):
+        tail = ("" if peak is None else
+                f", peak {peak:9.1f} MiB above the inputs")
+        print(f"{name:28s} {ms:9.3f} ms (host clock, best of 3){tail}")
+
+    row("encode_shard", _timed(lambda: encode_shard(x, shard, True)))
+    if "_marks" in inspect.signature(encode_shard).parameters:
+        for name, ms in stage_times(x, shard).items():
+            row(f"  stage: {name}", ms)
+    for name, (op, ref, a, k) in block_stage_inputs(x, shard).items():
+        row(name, _timed(lambda: op(*a, **k)))
+        row(f"plain {name}", _timed(lambda: ref(*a, **k)))
+
     lens, dists = lz77.find_matches(x)
     packed = lz77.find_matches_packed(x)
     tok_len = torch.where(lens >= 3, lens, 1)
     sym = torch.where(lens >= 3, 257 + lens % 29, x.long()).view(nb, -1)
-    ll = huffman.histogram_rows(sym, 286)
-    dd = huffman.histogram_rows(lens.view(nb, -1) % 30, 30)
-    freqs = torch.cat([ll, ll], 0)
     rows = {
-        "encode_shard": lambda: encode_shard(x, shard, True),
         "tokenize": lambda: lz77.tokenize(x, shard),
         "find_matches": lambda: lz77.find_matches(x),
         "lz_parse": lambda: lz77.lz_parse(x, lens, dists, shard),
@@ -75,18 +117,13 @@ def main() -> None:
         "greedy_parse": lambda: lz77.greedy_parse(tok_len),
         "tile_hist x2": lambda: (huffman.histogram_rows(sym, 286),
                                  huffman.histogram_rows(sym, 30)),
-        "block_plan": lambda: block_plan(ll, dd, nb, torch.full((nb,), 32768,
-                                                                device=x.device)),
-        "code_lengths": lambda: huffman.huffman_code_lengths(freqs, 11),
     }
     for name, fn in rows.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         ms = _timed(fn)
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-        print(f"{name:18s} {ms:9.3f} ms (host clock, best of 3), "
-              f"peak {peak:9.1f} MiB above the inputs")
+        row(name, ms, (torch.cuda.max_memory_allocated() - base) / 2**20)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

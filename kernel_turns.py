@@ -1,6 +1,7 @@
 """Time two trees of the port in turns on one CUDA card.
 
     python3 kernel_turns.py TREE [TREE ...] [--out FILE] [--phases-only]
+        [--block-stage-only]
 
 Each TREE is the root of a checkout of this repository (for example the
 parent commit unpacked with `git archive` into a git-ignored directory,
@@ -35,11 +36,22 @@ ops/timing.py` (loaded by path, so every tree is timed alike):
     `ops.copy_sources.resolve_bytes`, device ms per call (20 calls queued
     behind a spin kernel) and profiler ms by kernel name; the gather
     rounds resolve_bytes ran where the tree reports them, the rounds its
-    plain version runs, and the rounds bound.
+    plain version runs, and the rounds bound;
+  * the encoder's block stage at a 1 MB and a 4 MB shard of
+    `corpus.build_corpus`: encode_shard's host ms (median of 10 after a
+    warm-up, each ended by a synchronize); where the tree's encode_shard
+    has the `_marks` seam, its stages' host ms (`profile_encode.
+    stage_times`, best of 3); and where the tree has the block stage's
+    kernels, `block_plan`, `huffman_codes` (11 and 7 bits) and
+    `block_layout` on the inputs that encode handed them
+    (`corpus.block_stage_inputs`): device ms per call (20 calls
+    queued behind a spin kernel) and profiler ms by kernel name.
 
-With `--phases-only` a process measures the last item alone (for trees
-that differ only in those kernels). Every process prints one JSON line; the first process prints them all and,
-given `--out FILE`, writes them there as one JSON list. Needs a CUDA card.
+With `--phases-only` a process measures the decoder's phase kernels
+alone, with `--block-stage-only` the block stage alone (for trees that
+differ only in those kernels). Every process prints one JSON line; the
+first process prints them all and, given `--out FILE`, writes them there
+as one JSON list. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -65,7 +77,7 @@ def _helpers():
     return mod
 
 
-def child(tree: Path, phases_only: bool = False) -> dict:
+def child(tree: Path, only: str | None = None) -> dict:
     import numpy as np
     import torch
     sys.path.insert(0, str(tree))     # ahead of this script's folder
@@ -85,8 +97,11 @@ def child(tree: Path, phases_only: bool = False) -> dict:
     T = _helpers()
     dev = torch.device("cuda")
     res = {"tree": str(tree), "card": torch.cuda.get_device_name(0)}
+    if only == "--block-stage-only":
+        res["block_stage"] = block_stage_times(T, dev)
+        return res
     res["phases"] = phase_times(T, dev)
-    if phases_only:
+    if only == "--phases-only":
         return res
 
     def kernels_of(fn):
@@ -153,6 +168,7 @@ def child(tree: Path, phases_only: bool = False) -> dict:
     res["verified_decode_mb_s"] = float(np.median(runs))
     res["verified_decode_mb_s_runs"] = runs
     res["lz77"] = lz77_times(T, dev)
+    res["block_stage"] = block_stage_times(T, dev)
     return res
 
 
@@ -251,6 +267,49 @@ def phase_times(T, dev) -> dict:
     return out
 
 
+def host_ms(fn) -> float:
+    """Median host milliseconds of fn() over 10 calls after a warm-up,
+    each ended by a synchronize."""
+    import numpy as np
+    import torch
+    times = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def block_stage_times(T, dev) -> dict:
+    """The block-stage block of a tree's line (see the module's
+    docstring)."""
+    import inspect
+
+    import numpy as np
+    import torch
+    from deflate_compression_tpu_torch import corpus
+    from deflate_compression_tpu_torch import profile_encode as PE
+    from deflate_compression_tpu_torch.corpus import build_corpus
+    from deflate_compression_tpu_torch.format.deflate import encode_shard
+    out = {}
+    for label, n in (("1mb", 1 << 20), ("4mb", 4 << 20)):
+        x = torch.from_numpy(np.frombuffer(build_corpus(n), np.uint8).copy()
+                             ).to(dev)
+        r = {"encode_shard_host_ms": host_ms(
+            lambda: encode_shard(x, n, True))}
+        if "_marks" in inspect.signature(encode_shard).parameters:
+            r["stages_ms"] = PE.stage_times(x, n)
+        for name, (op, _, a, k) in getattr(
+                corpus, "block_stage_inputs", lambda *_: {})(x, n).items():
+            fn = lambda: op(*a, **k)  # noqa: E731
+            r[name] = {"device_ms": T.device_ms(fn, 20)[0],
+                       "prof": kernels_by_name(T, fn)}
+        out[label] = r
+    return out
+
+
 def lz77_times(T, dev) -> dict:
     """The LZ77 block of a tree's line (see the module's docstring)."""
     import re
@@ -267,16 +326,6 @@ def lz77_times(T, dev) -> dict:
 
     def by_name(fn):
         return kernels_by_name(T, fn)
-
-    def host_ms(fn):
-        times = []
-        for _ in range(11):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(times[1:]))
 
     packed = hasattr(FM, "find_matches_packed")
     out = {}
@@ -309,11 +358,12 @@ def lz77_times(T, dev) -> dict:
 
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--child":
+        only = [a for a in argv[2:] if a.endswith("-only")]
         print(json.dumps(child(Path(argv[1]).resolve(),
-                               "--phases-only" in argv)))
+                               only[0] if only else None)))
         return 0
-    flags = [a for a in argv if a == "--phases-only"]
-    argv = [a for a in argv if a != "--phases-only"]
+    flags = [a for a in argv if a in ("--phases-only", "--block-stage-only")]
+    argv = [a for a in argv if a not in flags]
     out_file = None
     if "--out" in argv:
         i = argv.index("--out")

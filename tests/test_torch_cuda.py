@@ -16,7 +16,10 @@ from deflate_compression_tpu_torch import corpus
 from deflate_compression_tpu_torch.decode import device_inflate as DI
 from deflate_compression_tpu_torch.decode import index as tidx
 from deflate_compression_tpu_torch.format import deflate as td
+from deflate_compression_tpu_torch.ops import block_layout as BL
+from deflate_compression_tpu_torch.ops import block_plan as BP
 from deflate_compression_tpu_torch.ops import decode_symbols as DS
+from deflate_compression_tpu_torch.ops import huffman_codes as HC
 from deflate_compression_tpu_torch.ops import histogram as H
 from deflate_compression_tpu_torch.ops import lut_gather as LG
 from test_torch_lanes import lanes_case
@@ -103,10 +106,11 @@ def test_tile_histogram_kernel_cluster_sizes(cuda, rows, length):
     (4 << 20, (4 << 20) - 12345, False), (1_081_344, 1_081_344, True)])
 def test_encode_shard_cuda_matches_cpu(cuda, size, valid_len, final):
     x = torch.from_numpy(corpus.sample("mixed", size, seed=1))
-    fns = (H.tile_histogram, FM.find_matches, LP.lz_parse)
+    fns = (H.tile_histogram, FM.find_matches, LP.lz_parse,
+           BP.block_plan, HC.huffman_codes, BL.block_layout)
     before = [f.launches for f in fns]
     g = td.encode_shard(x.to(cuda), valid_len, final)
-    assert [f.launches - n for f, n in zip(fns, before)] == [2, 1, 1]
+    assert [f.launches - n for f, n in zip(fns, before)] == [2, 1, 1, 1, 2, 1]
     c = td.encode_shard(x, valid_len, final)
     nw = (int(c["total_bits"]) + 31) // 32
     assert torch.equal(g["words"][:nw].cpu(), c["words"][:nw])
@@ -1062,3 +1066,136 @@ def test_tokenize_launches_each_kernel_once(cuda):
     want = TL.tokenize(x.cpu(), 100_000)
     for key in ("chosen", "length", "dist"):
         assert torch.equal(got[key].cpu(), want[key]), key
+
+
+# ------------------------------------------- the encoder's block stage
+
+def _same_plan(cuda, ll, d, n_valid, tile_bytes, mm=8):
+    ll, d, tb = (torch.as_tensor(x, dtype=torch.int64).to(cuda)
+                 for x in (ll, d, tile_bytes))
+    got_st, want_st = {}, {}
+    before = BP.block_plan.launches
+    split, nb = BP.block_plan(ll, d, n_valid, tb, mm, stats=got_st)
+    w_split, w_nb = BP.block_plan_ref(ll, d, n_valid, tb, mm, stats=want_st)
+    torch.cuda.synchronize()
+    assert BP.block_plan.launches == before + 1
+    assert torch.equal(split, w_split) and int(nb) == int(w_nb)
+    torch.testing.assert_close(got_st["cost"], want_st["cost"], rtol=1e-5,
+                               atol=0)
+    # the margin is a difference of two candidates a few ulps apart
+    torch.testing.assert_close(got_st["gap"], want_st["gap"], rtol=0, atol=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", corpus.BLOCK_PLAN_CASES)
+def test_block_plan_kernel_matches_plain(cuda, name):
+    ll, d, n_valid, tile_bytes = corpus.block_plan_case(name)
+    _same_plan(cuda, ll, d, n_valid, tile_bytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm,n_valid", [(1, 32), (2, 31), (5, 32), (32, 32),
+                                        (8, 0), (8, 1)])
+def test_block_plan_kernel_merge_bounds(cuda, mm, n_valid):
+    ll, d, _, tile_bytes = corpus.block_plan_case("m32")
+    _same_plan(cuda, ll, d, n_valid, tile_bytes, mm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 3000])
+def test_block_plan_kernel_tile_counts(cuda, M):
+    """One tile, and more tiles than the DP's warps take in one round
+    (3,000 of them, all below the float32-exact count of 2^24 / 32768)."""
+    ll, d = corpus.tile_histograms(M, M)
+    ll //= 8
+    d //= 8
+    tile_bytes = np.full(M, 32768, np.int64)
+    _same_plan(cuda, ll, d, M, tile_bytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", corpus.HUFFMAN_CASES)
+def test_huffman_codes_kernel_matches_plain(cuda, name):
+    freqs, max_bits = corpus.huffman_case(name)
+    _same_codes(torch.from_numpy(freqs).to(cuda), max_bits)
+
+
+def _same_codes(freqs, max_bits):
+    before = HC.huffman_codes.launches
+    got = HC.huffman_codes(freqs, max_bits)
+    want = HC.huffman_codes_ref(freqs, max_bits)
+    torch.cuda.synchronize()
+    assert HC.huffman_codes.launches == before + 1
+    for g, w, what in zip(got, want, got._fields):
+        assert g.dtype == torch.int64 and torch.equal(g, w), what
+    assert int(got.lengths.max()) <= max_bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,max_bits", [(1, 1), (2, 1), (19, 5), (30, 15),
+                                        (286, 9), (286, 15), (512, 15),
+                                        (300, 11)])
+def test_huffman_codes_kernel_alphabets(cuda, n, max_bits):
+    """Random, sparse and heavy-tailed rows of other sizes and limits (the
+    limit large enough for every used symbol)."""
+    rng = np.random.default_rng(n * max_bits)
+    rows = [rng.integers(0, 1000, n), rng.integers(0, 3, n)
+            * rng.integers(0, 50, n), rng.zipf(1.3, n) % 100000,
+            rng.integers(-5, 5, n)]
+    freqs = np.stack(rows).astype(np.int64)
+    if n > 1 << max_bits:
+        freqs[:, 1 << max_bits:] = 0
+    _same_codes(torch.from_numpy(freqs).to(cuda), max_bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", corpus.LAYOUT_CASES)
+def test_block_layout_kernel_matches_plain(cuda, name):
+    rest, stored = (torch.from_numpy(x).to(cuda)
+                    for x in corpus.layout_case(name))
+    before = BL.block_layout.launches
+    got = BL.block_layout(rest, stored)
+    want = BL.block_layout_ref(rest, stored)
+    torch.cuda.synchronize()
+    assert BL.block_layout.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("btype,plans", [(0, 0), (1, 0), (2, 1)])
+def test_encode_shard_forced_btype_launches(cuda, btype, plans):
+    """Forced fixed or stored blocks skip the DP; the codes and the layout
+    run in every encode."""
+    x = torch.from_numpy(corpus.sample("mixed", 1 << 18, seed=2))
+    fns = (BP.block_plan, HC.huffman_codes, BL.block_layout)
+    before = [f.launches for f in fns]
+    g = td.encode_shard(x.to(cuda), 250_000, True, force_btype=btype)
+    assert [f.launches - n for f, n in zip(fns, before)] == [plans, 2, 1]
+    c = td.encode_shard(x, 250_000, True, force_btype=btype)
+    for k in c:
+        assert torch.equal(g[k].cpu(), c[k]), k
+
+
+@pytest.mark.cuda
+def test_block_stage_wrappers_do_not_synchronize(cuda):
+    ll, d, n_valid, tile_bytes = (torch.as_tensor(x).to(cuda) if
+                                  isinstance(x, np.ndarray) else x
+                                  for x in corpus.block_plan_case("m32"))
+    freqs = torch.from_numpy(corpus.huffman_case("litlen_11")[0]).to(cuda)
+    rest, stored = (torch.from_numpy(x).to(cuda)
+                    for x in corpus.layout_case("nb32"))
+    BP.block_plan(ll, d, n_valid, tile_bytes)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = BP.block_plan(ll, d, n_valid, tile_bytes)
+        codes = HC.huffman_codes(freqs, 11)
+        lay = BL.block_layout(rest, stored)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(plan[0], BP.block_plan_ref(ll, d, n_valid,
+                                                  tile_bytes)[0])
+    assert torch.equal(codes.rev, HC.huffman_codes_ref(freqs, 11).rev)
+    assert torch.equal(lay[0], BL.block_layout_ref(rest, stored)[0])
