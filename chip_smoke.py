@@ -90,8 +90,12 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      and the smallest margin of a DP step between its best and
      second-best candidate; each kernel's and plain version's times as in
      phase 3 at phase 4's first shard and phase 10's, beside its bound
-     (bytes over 3.35 TB/s or operations over the float32 or int32 rate)
-     and its serial depth (DP steps, code-length levels, layout steps).
+     (bytes over 3.35 TB/s or operations over the float32 or int32 rate),
+     its serial depth (DP steps, code-length levels, layout steps) and
+     the serial-depth bound of block_plan and huffman_codes (an empty
+     kernel's queued launch plus the chain's steps at the SM clock
+     nvidia-smi reads), with block_plan's DP time a step from the clock64
+     cycles its kernel reports.
 Any failure raises, so the script exits non-zero. Before the last line it
 prints the kernels' JSON line: per kernel its launches on the main path
 (the 1 MB-shard encode of phase 4 and decode of phase 8), on the 4 MB-
@@ -116,7 +120,8 @@ rounds' gathers added, `rounds_run` (the gather rounds the kernels ran on
 phase 7's batch; `rounds_run_4mb` on phase 10's) and `plain_rounds`;
 block_plan, huffman_codes and block_layout carry `serial_depth` and the
 same at phase 10's first shard (`*_4mb`), huffman_codes its 7-bit call
-(`ms_7bit`, `*_7bit_4mb`), block_plan `max_rel_err_cost` and `min_gap`.
+(`ms_7bit`, `*_7bit_4mb`), block_plan `max_rel_err_cost`, `min_gap` and
+`dp_ns_per_step` (`*_4mb`), both `serial_bound_ms` (`*_4mb`, `*_7bit`).
 The last line is the JSON result {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1898,6 +1903,28 @@ def huffman_codes_ops(freqs, max_bits: int) -> int:
     return int((k * lg + 2 * k * (max_bits - 1) + k + max_bits).sum())
 
 
+# cycles a shared-memory round trip (load, an ALU operation, store) takes
+# on the chain of huffman_codes: one per package-merge level and per sort
+# round (about 23 each for the load and the store on Hopper)
+SMEM_ROUND_CYCLES = 50
+# block_plan's DP step: one float32 add and log2(8) = 3 minima, 4 cycles each
+DP_STEP_CYCLES = 16
+
+
+def sm_clock_ghz() -> float:
+    """The card's SM clock now, in GHz, as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) / 1e3
+
+
+def launch_floor_ms() -> float:
+    """Device ms per launch of an empty kernel (torch.cuda._sleep(0)),
+    queued 20 deep: the least any launch costs on this card."""
+    return device_ms(lambda: torch.cuda._sleep(0), 20)[0]
+
+
 def block_stage_phase(raw: bytes, cfg, dev) -> dict:
     """Phase 15: block_plan, huffman_codes and block_layout against their
     plain versions, on the inputs every encode_shard of phase 4's and
@@ -1987,6 +2014,8 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
                 list(op(*a)), list(ref(*a)), f"{row}, {label}"))
 
     times, depth, shown = {}, {}, []
+    floor, ghz = launch_floor_ms(), sm_clock_ghz()
+    serial, dp_ns = {}, {}
     for size in ("1mb", "4mb"):
         a = plan_args(first[size]["block_plan"])
         M = a[0].shape[0]
@@ -1997,6 +2026,10 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
             + M + 8, reps=5, plain_n=0, bound_ops=block_plan_ops(a),
             ops_rate=F32_TFLOPS * 1e12)
         depth["block_plan", size] = M
+        st = {}
+        BP.block_plan(*a, stats=st)
+        dp_ns[size] = int(st["dp_cycles"]) / M / ghz
+        serial["block_plan", size] = floor + M * DP_STEP_CYCLES / ghz / 1e6
         for bits in (11, 7):
             f, mb = first[size][f"huffman_codes {bits}-bit"]
             key = "huffman_codes" if bits == 11 else "huffman_codes_7bit"
@@ -2005,6 +2038,10 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
                 lambda: HC.huffman_codes_ref(f, mb), 20, 5,
                 f.numel() * (f.element_size() + 24), reps=5, plain_n=0,
                 bound_ops=huffman_codes_ops(f, mb))
+            used = int((f > 0).sum(1).max())
+            rounds = (mb - 1) + max(used - 1, 0).bit_length()
+            serial[key, size] = (floor + rounds * SMEM_ROUND_CYCLES
+                                 / ghz / 1e6)
         depth["huffman_codes", size] = 11
         rest, sto = first[size]["block_layout"]
         NB = rest.shape[0]
@@ -2014,7 +2051,9 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
             reps=5, plain_n=0, bound_ops=6 * NB)
         depth["block_layout", size] = NB
         shown.append(
-            f"{size} shard 0: block_plan ({M} tiles, {M} DP steps) "
+            f"{size} shard 0: block_plan ({M} tiles, {M} DP steps, "
+            f"{dp_ns[size]:.2f} ns a step by its clock64 at {ghz:.3f} GHz, "
+            f"serial-depth bound {serial['block_plan', size]:.5f} ms) "
             f"{show(times['block_plan', size])}; huffman_codes "
             f"11-bit ({tuple(first[size]['huffman_codes 11-bit'][0].shape)}, "
             f"11 levels) {show(times['huffman_codes', size])}; 7-bit "
@@ -2022,6 +2061,10 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
             f"levels) {show(times['huffman_codes_7bit', size])}; "
             f"block_layout ({NB} steps) {show(times['block_layout', size])}")
     gap, gap_at = min(gaps)
+    print(f"phase 15 serial-depth bounds (an empty kernel {floor:.5f} ms a "
+          f"launch, the SM clock {ghz:.3f} GHz): " + ", ".join(
+              f"{k} {size} {v:.5f} ms (share {v / times[k, size]['ms']:.3f})"
+              for (k, size), v in serial.items()))
     print(f"phase 15 block stage: tolerance 0 (exact) on the split, "
           f"n_blocks, code lengths, codes, reversed codes and layout, rtol "
           f"1e-5 on the segment costs; == the plain versions on "
@@ -2037,10 +2080,21 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
     t7 = {f"{k}_7bit{'' if size == '1mb' else '_4mb'}": times[
         "huffman_codes_7bit", size][k] for size in ("1mb", "4mb")
         for k in ("ms", "plain_ms", "bound_ms", "share_of_bound", "call_ms")}
+
+    def bound_keys(key):
+        return {f"serial_bound_ms{'' if size == '1mb' else '_4mb'}":
+                serial[key, size] for size in ("1mb", "4mb")}
+    t7.update({k.replace("serial_bound_ms", "serial_bound_ms_7bit"): v
+               for k, v in bound_keys("huffman_codes_7bit").items()})
     return {"max_abs_err": err, "times": times, "depth": depth,
             "extra": {"block_plan": {"max_rel_err_cost": rel,
-                                     "min_gap": gap},
-                      "huffman_codes": t7, "block_layout": {}}}
+                                     "min_gap": gap,
+                                     "dp_ns_per_step": dp_ns["1mb"],
+                                     "dp_ns_per_step_4mb": dp_ns["4mb"],
+                                     **bound_keys("block_plan")},
+                      "huffman_codes": {**t7,
+                                        **bound_keys("huffman_codes")},
+                      "block_layout": {}}}
 
 
 if __name__ == "__main__":

@@ -316,6 +316,32 @@ def huffman_case(name: str) -> tuple:
 HUFFMAN_CASES = ["litlen_11", "clen_7"]
 
 
+def huffman_rows(n: int, max_bits: int) -> np.ndarray:
+    """int64 rows of n frequencies for a max_bits limit: random, sparse,
+    Zipf, negative, all tied, one and two used symbols, and rows with
+    frequencies at and above INF = 2^28 (the one used symbol first in
+    order or not, and mixed with small ones); at most 2^max_bits used."""
+    inf = 1 << 28
+    rng = np.random.default_rng(n + max_bits)
+    one, two, tied = (np.zeros(n, np.int64) for _ in range(3))
+    one[n // 2] = 11
+    two[0], two[-1] = 3, 3
+    tied[:] = 7
+    big = []
+    for at, v in ((0, inf), (n - 1, inf), (0, inf + 5)):
+        r = np.zeros(n, np.int64)
+        r[at] = v
+        big.append(r)
+    mixed = rng.integers(0, 1000, n)
+    mixed[rng.integers(0, n, 3)] = [inf, inf + 1, 1 << 40]
+    rows = np.stack([rng.integers(0, 1000, n), rng.integers(0, 3, n)
+                     * rng.integers(0, 50, n), rng.zipf(1.3, n) % 100000,
+                     rng.integers(-5, 5, n), one, two, tied, *big,
+                     mixed]).astype(np.int64)
+    rows[:, 1 << max_bits:] = 0
+    return rows
+
+
 def layout_case(name: str) -> tuple:
     """(rest int64[NB], stored bool[NB]) of one case of the block layout:
     NB blocks (32, 128, 1, or 5,000 to cross the kernel's 2,048-block

@@ -20,30 +20,50 @@
 //   codes   RFC 1951 §3.2.2: next_code from the length counts, plus each
 //           symbol's rank among the symbols of its length in symbol order;
 //   rev     each code reversed within its length.
-// The arithmetic is the plain version's, in int64 with the same INF clamp,
-// so every output equals it for any int64 frequencies.
+//
+// Only the finite items matter. With k' the symbols of 0 < f < INF, every
+// P_l holds at most 2k' - 1 items below INF, first, in order (k' leaves
+// and at most k' - 1 packages, since a package of an item >= INF is INF);
+// nleaf_l counts nothing past them and no package below INF is made from
+// anything else. So the kernel keeps each level's finite prefix only,
+// 2k' - 1 items at most whatever n is, in int32 (below 2^29), and gives
+// the plain version's outputs for any frequencies below 2^62 (where no sum
+// of two weights overflows int64); a symbol of f >= INF gets length 0, and
+// length 1 only where it is the one used symbol and sorts first, as in
+// the plain version.
 //
 // What bounds it on this card: the latency of its dependent steps. A row
-// moves 8 n bytes in and 24 n bytes out (9 KB at n = 286) and does O(n^2)
-// compares; the work is a chain of about 3 max_bits barriers.
+// moves 8 n bytes in and 24 n bytes out (9 KB at n = 286) and does
+// O(k' log k') compares per level; the work is a chain of about 3
+// max_bits barriers, each level one binary search deep.
 //
-// One CTA per alphabet, one thread per symbol (n rounded up to a warp):
-//   * the sort: the key (weight, symbol) is unique, so each thread counts
-//     the keys below its own in shared memory (n compares, the same key
-//     read by every lane at once) and writes itself to that rank: a
-//     stable order with no sort network;
-//   * each of the max_bits - 1 levels: thread p forms package p, then
-//     thread j places leaf j and package j in the merged list by a binary
-//     search of the other sorted list (searchsorted left for a leaf, right
-//     for a package: the tie rule), and keeps the leaf's position for the
-//     top-down pass (max_bits x n 16-bit ranks in shared memory);
-//   * the top-down pass: every thread carries the same m; one
-//     __syncthreads_count per level counts the leaves placed before m;
-//   * the length counts by shared atomics, next_code by each thread from
-//     them (max_bits steps), its rank among equal lengths by a scan of the
-//     lower symbols, and __brev for the reversed code.
+// One CTA per alphabet, a thread per symbol (a warp per 32), thread t the
+// item t of every list:
+//   * the used symbols below INF are compacted (a ballot per warp and the
+//     counts of the warps before it) as unique keys f << 16 | symbol, and
+//     each key's rank is the count of the keys below it, read by every
+//     thread at once, eight in flight (k' keys, not n);
+//   * each package-merge level: the packages below INF (a prefix: the pair
+//     sums ascend; __syncthreads_count gives their number), then leaf t
+//     placed at t + #(packages < it) and package t at t + #(leaves <= it)
+//     (a leaf first on equal weight), both searches in lockstep; leaf t's
+//     position is kept per level; two barriers a level (with one, each
+//     package summed from the level below where a search reads it, the
+//     searches' longer probes cost more than the barrier);
+//   * the top-down counts: one __syncthreads_count per level of the leaves
+//     placed before m, each thread adding its own leaf's length as it
+//     goes;
+//   * the codes: each symbol's rank among those of its length in its
+//     warp is a __match_any_sync and a __popc of the lower lanes; one table
+//     of each warp's counts, summed over the warps by 16 threads, gives
+//     the ranks' offsets and bl_count.
+// The levels set the time of an encoder's 286-symbol rows, the sort's
+// count over the used keys next (block_stage_probe.py gives the cycles of
+// each stage; PERF.md §6). A warp per alphabet was slower than one thread
+// per symbol: one lane's share of a level is a chain of dependent
+// shared-memory loads, where here each thread places one item.
 //
-// Domain: 1 <= n <= 512, 1 <= max_bits <= 15.
+// Domain: 1 <= n <= 512, 1 <= max_bits <= 15, frequencies below 2^62.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,126 +71,165 @@ namespace {
 
 constexpr int kMaxSyms = 512;
 constexpr int kMaxBits = 15;
+constexpr int kMaxThreads = kMaxSyms;      // a thread per symbol
+constexpr int kGroups = kMaxSyms / 32;     // warps of 32 symbols
 constexpr int kMaxDevices = 64;
-constexpr int64_t kInf = int64_t{1} << 28;
+constexpr int kInf = 1 << 28;
+constexpr unsigned kAll = 0xFFFFFFFFu;
 
-// #{i < n : a[i] < x} for ascending a
-__device__ __forceinline__ int count_below(const int64_t* a, int n,
-                                           int64_t x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < x) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
+__device__ __forceinline__ int top_step(int len) {  // the largest 2^i <= len
+  return len > 0 ? 1 << (31 - __clz(len)) : 0;
 }
 
-// #{i < n : a[i] <= x} for ascending a
-__device__ __forceinline__ int count_at_most(const int64_t* a, int n,
-                                             int64_t x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] <= x) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(kMaxSyms)
-    huffman_codes_kernel(const int64_t* __restrict__ freqs, int n, int max_bits,
-                         int64_t* __restrict__ lengths,
+__global__ void __launch_bounds__(kMaxThreads)
+    huffman_codes_kernel(const int64_t* __restrict__ freqs, int n,
+                         int max_bits, int64_t* __restrict__ lengths,
                          int64_t* __restrict__ codes,
                          int64_t* __restrict__ rev) {
-  __shared__ int64_t lv[kMaxSyms];          // sorted leaf weights
-  __shared__ int64_t pw[kMaxSyms];          // this level's packages
-  __shared__ int64_t w[2 * kMaxSyms];       // the level list (keys first)
-  __shared__ int16_t rank_l[kMaxBits][kMaxSyms];
+  __shared__ uint64_t key[kMaxSyms];        // compacted, unsorted
+  __shared__ int lv[kMaxSyms];              // sorted leaf weights
+  __shared__ int pk[kMaxSyms];              // this level's packages
+  __shared__ int wl[2][2 * kMaxSyms];       // the level lists' weights
+  __shared__ int16_t at_level[kMaxBits][kMaxSyms];  // leaf t's position
   __shared__ int16_t order[kMaxSyms];       // symbol of sorted leaf j
-  __shared__ uint8_t len_of[kMaxSyms];      // length by symbol
-  __shared__ int bl_count[kMaxBits + 1];
+  __shared__ uint8_t len_of[kMaxSyms];
+  __shared__ int tab[kGroups][16];          // counts, then offsets
+  __shared__ int bl[16];
+  __shared__ int w_act[kGroups], w_fin[kGroups], s_act_sym;
+  __shared__ long long s_act_f;
 
-  const int t = threadIdx.x;
-  const bool sym = t < n;
-  const int64_t row = int64_t{blockIdx.x} * n;
-  const int64_t f = sym ? freqs[row + t] : 0;
-  const bool active = sym && f > 0;
-  const int64_t key = active ? f : kInf;
-  if (sym) w[t] = key;
-  if (t <= kMaxBits) bl_count[t] = 0;
-  const int k = __syncthreads_count(active);
+  const int t = threadIdx.x, T = blockDim.x;
+  const int lane = t & 31, warp = t >> 5;
+  const unsigned below = (1u << lane) - 1;
+  const int64_t at = int64_t{blockIdx.x} * n;
+  for (int i = t; i < kGroups * 16; i += T) tab[i / 16][i % 16] = 0;
 
-  // stable order by (key, symbol)
-  if (sym) {
-    int pos = 0;
-    for (int u = 0; u < n; ++u) {
-      const int64_t ku = w[u];
-      pos += ku < key || (ku == key && u < t);
+  // ---- load; compact the used symbols below INF (warp counts, then each
+  // warp's place from the counts before it)
+  const int64_t f = t < n ? freqs[at + t] : 0;
+  const bool active = f > 0, fin = active && f < kInf;
+  const unsigned ba = __ballot_sync(kAll, active);
+  const unsigned bf = __ballot_sync(kAll, fin);
+  if (lane == 0) {
+    w_act[warp] = __popc(ba);
+    w_fin[warp] = __popc(bf);
+  }
+  if (active) {
+    s_act_sym = t;                          // read only when k == 1
+    s_act_f = f;
+  }
+  if (t < n) len_of[t] = 0;
+  __syncthreads();
+  int k = 0, kf = 0, base = 0;
+  for (int w = 0; w < T / 32; ++w) {
+    k += w_act[w];
+    base += w < warp ? w_fin[w] : 0;
+    kf += w_fin[w];
+  }
+  if (fin)
+    key[base + __popc(bf & below)] =
+        static_cast<uint64_t>(f) << 16 | static_cast<uint64_t>(t);
+  __syncthreads();
+
+  // ---- rank sort: each key's place is the count of the keys below it
+  if (t < kf) {
+    const uint64_t mine = key[t];
+    int rank = 0, u = 0;
+    for (; u + 8 <= kf; u += 8) {
+      uint64_t v[8];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) v[x] = key[u + x];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) rank += v[x] < mine;
     }
-    lv[pos] = key;
-    order[pos] = static_cast<int16_t>(t);
-  }
-  __syncthreads();
-  if (sym) {
-    w[t] = lv[t];
-    w[n + t] = kInf;
+    for (; u < kf; ++u) rank += key[u] < mine;
+    lv[rank] = static_cast<int>(mine >> 16);
+    order[rank] = static_cast<int16_t>(mine & 0xFFFF);
   }
   __syncthreads();
 
+  // ---- package-merge levels 2..max_bits over the finite prefixes
+  int fc = kf;
+  const int top_l = top_step(kf);
   for (int l = 1; l < max_bits; ++l) {
-    if (sym) {
-      const int64_t s = w[2 * t] + w[2 * t + 1];
-      pw[t] = s < kInf ? s : kInf;
+    const int* w = l == 1 ? lv : wl[l & 1];  // the level below
+    int* nxt = wl[(l & 1) ^ 1];
+    // the packages below INF: a prefix, the pair sums ascending
+    bool fin = false;
+    if (t < fc / 2) {
+      const int s = w[2 * t] + w[2 * t + 1];
+      fin = s < kInf;
+      if (fin) pk[t] = s;
     }
-    __syncthreads();
-    if (sym) {
-      const int rl = t + count_below(pw, n, lv[t]);
-      const int rp = t + count_at_most(lv, n, pw[t]);
-      w[rl] = lv[t];
-      w[rp] = pw[t];
-      rank_l[l][t] = static_cast<int16_t>(rl);
+    const int np = __syncthreads_count(fin);
+    // leaf t: t + #(packages < it); package t: t + #(leaves <= it)
+    const int top_p = top_step(np);
+    const int key_l = t < kf ? lv[t] : 0, key_p = t < np ? pk[t] : 0;
+    int pos_l = 0, pos_p = 0;
+    for (int step = top_p > top_l ? top_p : top_l; step >= 1; step >>= 1) {
+      const int pl = pos_l + step, pp = pos_p + step;
+      if (step <= top_p && pl <= np && pk[pl - 1] < key_l) pos_l = pl;
+      if (step <= top_l && pp <= kf && lv[pp - 1] <= key_p) pos_p = pp;
     }
+    if (t < kf) {
+      nxt[t + pos_l] = key_l;
+      at_level[l][t] = static_cast<int16_t>(t + pos_l);
+    }
+    if (t < np) nxt[t + pos_p] = key_p;
+    fc = kf + np;
     __syncthreads();
   }
-
-  // top-down: the leaves among the first m items, deepest level first
-  int len = 0;
+  // ---- top-down: the finite leaves among each level's first m items
+  // (a barrier's count of the leaves placed before m), and the length of
+  // sorted leaf t as the levels where it is one of them
+  int depth = 0;
   long long m = 2LL * k - 2;
   if (m < 0) m = 0;
-  const bool finite = sym && lv[t] < kInf;
   for (int l = max_bits - 1; l >= 0; --l) {
-    const long long idx = m < 0 ? 0 : (m > 2LL * n ? 2LL * n : m);
-    const int at = l == 0 ? t : rank_l[l][t];
-    const int nleaf = __syncthreads_count(finite && at < idx);
-    len += t < nleaf;
-    m = 2 * (m - nleaf);
+    const long long idx = m > 2LL * n ? 2LL * n : m;
+    const int at = l == 0 ? t : at_level[l][t];
+    const int c = __syncthreads_count(t < kf && at < idx);
+    depth += t < c;
+    m = 2 * (m - c);
   }
-  if (sym) {
-    int lj = t < k ? len : 0;
-    if (k == 1) lj = t == 0;
-    len_of[order[t]] = static_cast<uint8_t>(lj);
+  if (t < kf)
+    len_of[order[t]] = static_cast<uint8_t>(k == 1 ? t == 0 : depth);
+  if (t == 0 && k == 1 && kf == 0) {
+    // the one used symbol lies at or above INF: length 1 if it sorts first
+    // among all n keys (the unused symbols' keys are INF)
+    if (n == 1 || (s_act_sym == 0 && s_act_f == kInf)) len_of[s_act_sym] = 1;
   }
   __syncthreads();
 
-  const int my_len = active ? len_of[t] : 0;
-  if (my_len > 0) atomicAdd(&bl_count[my_len], 1);
-  if (sym) len_of[t] = static_cast<uint8_t>(my_len);
+  // ---- canonical codes: ranks among equal lengths in symbol order
+  const int len = t < n ? len_of[t] : 0;
+  const unsigned same = __match_any_sync(kAll, len);
+  const int within = __popc(same & below);
+  if (__ffs(same) - 1 == lane) tab[warp][len] = __popc(same);
   __syncthreads();
-  if (!sym) return;
-  int64_t code = 0, r = 0;
-  if (my_len > 0) {
-    int64_t next = 0;
-    for (int b = 1; b <= my_len; ++b)      // bl_count[0] stays 0
-      next = (next + bl_count[b - 1]) << 1;
-    int rank = 0;
-    for (int u = 0; u < t; ++u) rank += len_of[u] == my_len;
-    code = next + rank;
-    r = __brev(static_cast<unsigned>(code)) >> (32 - my_len);
+  if (t < 16) {                             // counts -> offsets, bl_count
+    int run = 0;
+    for (int g = 0; g < T / 32; ++g) {
+      const int v = tab[g][t];
+      tab[g][t] = run;
+      run += v;
+    }
+    bl[t] = run;
   }
-  lengths[row + t] = my_len;
-  codes[row + t] = code;
-  rev[row + t] = r;
+  __syncthreads();
+  if (t < n) {
+    long long code = 0, rv = 0;
+    if (len > 0) {
+      long long next = 0;                   // RFC 1951 next_code[len]
+      for (int b = 1; b < len; ++b)
+        next += static_cast<long long>(bl[b]) << (len - b);
+      code = next + tab[warp][len] + within;
+      rv = __brev(static_cast<unsigned>(code)) >> (32 - len);
+    }
+    lengths[at + t] = len;
+    codes[at + t] = code;
+    rev[at + t] = rv;
+  }
 }
 
 }  // namespace
@@ -190,12 +249,11 @@ extern "C" int huffman_codes_launch(const void* freqs, int rows, int n,
   if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
   if (e == cudaSuccess) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const unsigned threads = static_cast<unsigned>((n + 31) / 32 * 32);
-    auto* lo = static_cast<int64_t*>(lengths);
-    auto* co = static_cast<int64_t*>(codes);
-    auto* ro = static_cast<int64_t*>(rev);
+    const int threads = (n + 31) / 32 * 32;
     huffman_codes_kernel<<<rows, threads, 0, st>>>(
-        static_cast<const int64_t*>(freqs), n, max_bits, lo, co, ro);
+        static_cast<const int64_t*>(freqs), n, max_bits,
+        static_cast<int64_t*>(lengths), static_cast<int64_t*>(codes),
+        static_cast<int64_t*>(rev));
     e = cudaGetLastError();
   }
   if (cur >= 0 && cur != device) cudaSetDevice(cur);

@@ -7,12 +7,13 @@ histograms, the estimated bits of every block of at most `max_merge` tiles
 (`core/cost.py::segment_costs`), the DP over tile boundaries and the
 backtrack from the last valid tile.
 
-The kernels (`csrc/block_plan.cu`: a warp per segment cost, then one CTA
-for the DP and the backtrack) are built at first use by
+The kernel (`csrc/block_plan.cu`: a CTA of eight warps per end tile for
+the segment costs; the CTA that finishes last runs the DP, its chain in one
+thread's registers, and the backtrack; one launch) is built at first use by
 `ops/cuda_build.py` and called through ctypes on PyTorch's current
 stream. `block_plan` launches it for CUDA tensors and raises if it cannot;
 it takes the plain version `block_plan_ref` only for tensors that lie on
-the CPU. `block_plan.launches` counts the calls that launched them.
+the CPU. `block_plan.launches` counts the calls that launched it.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from . import cuda_build
 
 SOURCE = cuda_build.CSRC / "block_plan.cu"
 MAX_TILES = 32767                # encode_shard's S < 2^30
-MAX_MERGE = 32                   # one lane per candidate
+MAX_MERGE = 32                   # the DP chain holds at most 32 candidates
 _BIG = 3.4e38
 
 
@@ -37,8 +38,22 @@ def _bind():
     lookup."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib = cuda_build.load(SOURCE, {"block_plan_launch": [
-        vp, vp, vp, i32, i32, i32, vp, vp, vp, i32, vp]})
+        vp, vp, vp, i32, i32, i32, vp, vp, vp, vp, i32, vp]})
     return lib.block_plan_launch, cuda_build.raw_stream()
+
+
+_tickets: dict = {}
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's CTA counter for this stream: zeroed once, and left at
+    0 by every launch, so launches on one stream share it and launches on
+    two streams never do."""
+    t = _tickets.get((dev.index, stream))
+    if t is None:
+        t = _tickets[dev.index, stream] = torch.zeros(
+            1, dtype=torch.int32, device=dev)
+    return t
 
 
 def _check(ll, dd, tile_bytes, n_valid: int, max_merge: int) -> None:
@@ -126,7 +141,9 @@ def block_plan(ll_freq_micro: torch.Tensor, d_freq_micro: torch.Tensor,
     split[0] is always True. With a `stats` dict, also the float32
     segment costs (M, max_merge) under "cost" and, under "gap", the
     smallest margin by which a DP step's best candidate beat its runner-up
-    over steps 2..n_micro_valid (inf if none). A CUDA tensor goes through
+    over steps 2..n_micro_valid (inf if none); from the kernel, also the
+    clock64 cycles of its DP loop under "dp_cycles" (an int32 tensor; the
+    plain version has none). A CUDA tensor goes through
     the CUDA kernel (or this raises); a CPU tensor through
     `block_plan_ref`."""
     n_valid = int(n_micro_valid)
@@ -138,22 +155,26 @@ def block_plan(ll_freq_micro: torch.Tensor, d_freq_micro: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     M = ll_freq_micro.shape[0]
-    # the segment costs, the smallest margin, opt[0..M]
-    scratch = torch.empty(M * max_merge + M + 2, dtype=torch.float32,
+    # the segment costs, the smallest margin, the DP loop's cycles,
+    # opt[0..M]
+    scratch = torch.empty(M * max_merge + M + 3, dtype=torch.float32,
                           device=dev)
     split = torch.empty(M, dtype=torch.bool, device=dev)
     n_blocks = torch.empty((), dtype=torch.int64, device=dev)
     launch, stream = _bind()
+    st = stream(dev.index)
     rc = launch(ll_freq_micro.data_ptr(), d_freq_micro.data_ptr(),
                 tile_bytes.data_ptr(), M, max_merge, n_valid,
                 scratch.data_ptr(), split.data_ptr(), n_blocks.data_ptr(),
-                dev.index, stream(dev.index))
+                _ticket(dev, st).data_ptr(), dev.index, st)
     if rc != 0:
         raise RuntimeError(f"block_plan launch failed: cudaError {rc}")
     block_plan.launches += 1
     if stats is not None:
-        stats["cost"] = scratch[:M * max_merge].view(M, max_merge)
-        stats["gap"] = scratch[M * max_merge]
+        at = M * max_merge
+        stats["cost"] = scratch[:at].view(M, max_merge)
+        stats["gap"] = scratch[at]
+        stats["dp_cycles"] = scratch[at + 1:at + 2].view(torch.int32)[0]
     return split, n_blocks
 
 

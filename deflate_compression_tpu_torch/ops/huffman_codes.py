@@ -9,8 +9,9 @@ optimal code lengths under a length limit (package-merge, a leaf before a
 package of equal weight), the RFC 1951 canonical codes and each code
 bit-reversed within its length, as the LSB-first stream writes it.
 
-The kernel (`csrc/huffman_codes.cu`: one CTA per alphabet) is built at
-first use by `ops/cuda_build.py` and called through ctypes on PyTorch's
+The kernel (`csrc/huffman_codes.cu`: one CTA per alphabet, a thread per
+symbol, int32 lists of the used symbols below 2^28 only) is built at first
+use by `ops/cuda_build.py` and called through ctypes on PyTorch's
 current stream. `huffman_codes` launches it for a CUDA tensor and raises if
 it cannot; it takes the plain version `huffman_codes_ref` (today's three
 functions of core/huffman.py and core/bits.py, composed unchanged) only for
@@ -78,7 +79,7 @@ def huffman_codes_ref(freqs: torch.Tensor, max_bits: int) -> Codes:
 
 def huffman_codes(freqs: torch.Tensor, max_bits: int) -> Codes:
     """Codes of at most `max_bits` bits for each row of freqs (B, n),
-    contiguous int64; a symbol is used where its frequency is
+    contiguous int64 below 2^62; a symbol is used where its frequency is
     positive. Among used symbols a lower frequency never gets a shorter
     code, ties by symbol index; one used symbol gets length 1. A CUDA
     tensor goes through the CUDA kernel (or this raises); a CPU tensor

@@ -12,7 +12,8 @@ torch.cuda.synchronize()):
     more than the whole);
   * the block stage's three ops (block_plan, huffman_codes at 11 and 7
     bits, block_layout) on the inputs that encode handed them, each beside
-    its plain version on the same inputs on the card;
+    its plain version on the same inputs on the card, and block_plan's DP
+    loop in clock64 cycles a step;
   * some stages run alone on inputs of the main-path shapes (tokenize is
     the find_matches and lz_parse kernels with the packed hand-off, timed
     alone beside their int64 calls; their plain versions, which the card
@@ -35,6 +36,7 @@ from torch.profiler import ProfilerActivity, profile
 from .corpus import block_stage_inputs, build_corpus
 from .core import huffman, lz77
 from .format.deflate import encode_shard
+from .ops.block_plan import block_plan as block_plan_op
 
 
 def _timed(fn, reps: int = 3) -> float:
@@ -101,6 +103,12 @@ def main() -> None:
     for name, (op, ref, a, k) in block_stage_inputs(x, shard).items():
         row(name, _timed(lambda: op(*a, **k)))
         row(f"plain {name}", _timed(lambda: ref(*a, **k)))
+        if name == "block_plan":
+            st = {}
+            block_plan_op(*a, **k, stats=st)
+            M = a[0].shape[0]
+            print(f"{'  its DP loop':28s} {int(st['dp_cycles']) / M:9.1f} "
+                  f"cycles a step (clock64, {M} steps)")
 
     lens, dists = lz77.find_matches(x)
     packed = lz77.find_matches_packed(x)

@@ -45,7 +45,13 @@ ops/timing.py` (loaded by path, so every tree is timed alike):
     kernels, `block_plan`, `huffman_codes` (11 and 7 bits) and
     `block_layout` on the inputs that encode handed them
     (`corpus.block_stage_inputs`): device ms per call (20 calls
-    queued behind a spin kernel) and profiler ms by kernel name.
+    queued behind a spin kernel) and profiler ms by kernel name, a
+    SHA-256 of each result's bytes (and of block_plan's segment costs),
+    and the DP's time a step: its loop's clock64 cycles over the tiles
+    where the tree's kernel reports them (`stats["dp_cycles"]`, in ns at
+    the card's SM clock read by nvidia-smi after the run), else its DP
+    kernel's profiler time over the tiles. The first process says
+    whether every tree's hashes agree.
 
 With `--phases-only` a process measures the decoder's phase kernels
 alone, with `--block-stage-only` the block stage alone (for trees that
@@ -293,6 +299,7 @@ def block_stage_times(T, dev) -> dict:
     from deflate_compression_tpu_torch import profile_encode as PE
     from deflate_compression_tpu_torch.corpus import build_corpus
     from deflate_compression_tpu_torch.format.deflate import encode_shard
+    from deflate_compression_tpu_torch.ops import block_plan as BP
     out = {}
     for label, n in (("1mb", 1 << 20), ("4mb", 4 << 20)):
         x = torch.from_numpy(np.frombuffer(build_corpus(n), np.uint8).copy()
@@ -306,8 +313,46 @@ def block_stage_times(T, dev) -> dict:
             fn = lambda: op(*a, **k)  # noqa: E731
             r[name] = {"device_ms": T.device_ms(fn, 20)[0],
                        "prof": kernels_by_name(T, fn)}
+            st = {} if name == "block_plan" else None
+            got = BP.block_plan(*a, **k, stats=st) if st is not None \
+                else fn()
+            r[name]["sha256"] = digest(leaves(got))
+            if st is not None:
+                M = a[0].shape[0]
+                r[name]["cost_sha256"] = digest([st["cost"]])
+                if "dp_cycles" in st:
+                    r[name]["dp_cycles_per_step"] = int(st["dp_cycles"]) / M
+                else:
+                    dp = [v for kname, v in r[name]["prof"].items()
+                          if "dp" in kname]
+                    r[name]["dp_kernel_ns_per_step"] = (
+                        dp[0] * 1e6 / M if dp else None)
         out[label] = r
+    out["sm_clock_mhz"] = sm_clock_mhz()
+    for r in out.values():
+        cyc = r.get("block_plan", {}).get("dp_cycles_per_step") if \
+            isinstance(r, dict) else None
+        if cyc is not None:
+            r["block_plan"]["dp_ns_per_step"] = cyc * 1e3 / out[
+                "sm_clock_mhz"]
     return out
+
+
+def digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sm_clock_mhz() -> float:
+    """The card's SM clock now, in MHz, as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0])
 
 
 def lz77_times(T, dev) -> dict:
@@ -383,6 +428,15 @@ def main(argv) -> int:
         row = json.loads(out.stdout.strip().splitlines()[-1])
         print(json.dumps(row), flush=True)
         rows.append(row)
+    hashes = [{(size, name, key): v for size, r in row["block_stage"].items()
+               if isinstance(r, dict)
+               for name, o in r.items() if isinstance(o, dict)
+               for key, v in o.items() if key.endswith("sha256")}
+              for row in rows if "block_stage" in row]
+    if hashes:
+        same = all(h == hashes[0] for h in hashes)
+        print(f"block stage results and segment costs bit-identical across "
+              f"the trees: {same}", flush=True)
     if out_file is not None:
         out_file.parent.mkdir(parents=True, exist_ok=True)
         out_file.write_text(json.dumps(rows, indent=1))

@@ -43,13 +43,32 @@ INF_W = 1 << 28
 
 # ------------------------------------------------------------ block plan
 
+def _jax_plan_args(ll, d, n_valid, tile_bytes):
+    return (jnp.asarray(ll, jnp.int32), jnp.asarray(d, jnp.int32),
+            jnp.int32(n_valid), jnp.asarray(tile_bytes, jnp.int32))
+
+
+def _jax_block_plan_eager(ll, d, n_valid, tile_bytes):
+    """core/cost.py::block_plan called op by op, outside any jit."""
+    a, b, n, t = _jax_plan_args(ll, d, n_valid, tile_bytes)
+    return jc.block_plan(a, b, n, max_merge=8, tile_bytes=t)
+
+
+def _jax_block_plan_jit(ll, d, n_valid, tile_bytes):
+    """core/cost.py::block_plan as the JAX encoder runs it: inside one
+    jax.jit, max_merge static, the counts, n_valid and tile_bytes traced
+    (format/deflate.py::encode_shard_jit)."""
+    fn = jax.jit(lambda a, b, n, t: jc.block_plan(a, b, n, max_merge=8,
+                                                  tile_bytes=t))
+    return fn(*_jax_plan_args(ll, d, n_valid, tile_bytes))
+
+
 @pytest.mark.parametrize("name", corpus.BLOCK_PLAN_CASES)
 def test_block_plan_matches_jax(name):
+    """The split and n_blocks equal the JAX package's block_plan run as its
+    encoder runs it, under jax.jit."""
     ll, d, n_valid, tile_bytes = corpus.block_plan_case(name)
-    w_split, w_nb = jc.block_plan(
-        jnp.asarray(ll, jnp.int32), jnp.asarray(d, jnp.int32),
-        jnp.int32(n_valid), max_merge=8,
-        tile_bytes=jnp.asarray(tile_bytes, jnp.int32))
+    w_split, w_nb = _jax_block_plan_jit(ll, d, n_valid, tile_bytes)
     stats = {}
     g_split, g_nb = BP.block_plan(torch.from_numpy(ll), torch.from_numpy(d),
                                   n_valid, torch.from_numpy(tile_bytes), 8,
@@ -73,11 +92,16 @@ def _lane_sum(terms: np.ndarray, lanes: np.ndarray) -> float:
 
 
 def plan_model(ll, d, n_valid, tile_bytes, mm):
-    """numpy model of csrc/block_plan.cu: segment counts summed tile by
-    tile in integers, float32 terms, float64 sums rounded once; the DP's
-    argmin as the least bit pattern of the candidates and its first lane;
-    the backtrack counting its steps. Returns (split, n_blocks, cost,
-    gap)."""
+    """numpy model of csrc/block_plan.cu: for each end tile j the running
+    integer counts of tiles j-1, j-2, ... and after each tile k the cost
+    of tiles [j-k, j): float32 terms, float64 sums rounded once; the DP
+    chain with opt[j-MM..j-1] in a ring indexed j mod MM (MM = 8 or 32,
+    the columns k > mm +inf, opt below 0 the plain version's 3.4e38),
+    MM float32 candidates and their minimum taken newest last; then each
+    step's
+    candidates again from opt: the first k that reaches opt[j] as the back
+    link and the margin to the runner-up; the backtrack counting its
+    steps. Returns (split, n_blocks, cost, gap)."""
     M = ll.shape[0]
     syms = np.concatenate([ll, d], 1).astype(np.int64)
     lanes = np.arange(316) % 32
@@ -105,22 +129,29 @@ def plan_model(ll, d, n_valid, tile_bytes, mm):
             if k == 1:
                 c = min(c, F32(42.0) + F32(8.0) * F32(tile_bytes[j - 1]))
             cost[j - 1, k - 1] = c
-    tail = np.full(32, F32(3.4e38))
-    tail[0] = 0
+    MM = 8 if mm <= 8 else 32
+    row = np.full((M, MM), np.inf, F32)
+    row[:, :mm] = cost
+    ring = np.full(MM, F32(3.4e38))
+    ring[0] = 0
+    opt = np.zeros(M + 1, F32)
+    for j in range(1, M + 1):
+        c = np.array([ring[(j - k) % MM] + row[j - 1, k - 1]
+                      for k in range(1, MM + 1)], F32)
+        far = c[2:].min()               # k >= 3: opt[j-3] and older
+        ring[j % MM] = opt[j] = min(c[0], min(c[1], far))
     back, gap = np.zeros(M, np.int64), np.inf
     for j in range(1, M + 1):
-        lane = np.arange(32)
-        row = np.zeros(32, F32)
-        row[:mm] = cost[j - 1]
-        valid = (lane < mm) & (j - 1 - lane >= 0)
-        cand = np.where(valid, tail + row, F32(3.4e38)).astype(F32)
-        bits = cand.view(np.uint32)
-        best = int(np.flatnonzero(bits == bits.min())[0])
-        back[j - 1] = best + 1
-        others = bits[valid & (lane != best)]
-        if 2 <= j <= n_valid and others.size:
-            gap = min(gap, float(others.min().view(F32) - cand[best]))
-        tail = np.concatenate([[cand[best]], tail[:-1]]).astype(F32)
+        best = second = F32(np.inf)
+        for k in range(1, min(mm, j) + 1):
+            cand = F32(opt[j - k] + cost[j - 1, k - 1])
+            if cand < best:
+                second, best, back[j - 1] = best, cand, k
+            elif cand < second:
+                second = cand
+        assert best.view(np.uint32) == opt[j].view(np.uint32)
+        if 2 <= j <= n_valid:
+            gap = min(gap, float(second - best))
     split = np.zeros(M, bool)
     split[0] = True
     jcur, blocks = n_valid, 0
@@ -209,12 +240,15 @@ class _ArgminSpy:
 
 
 def test_block_plan_near_tie_witness(monkeypatch):
-    """m32_short's DP step 13, where the port and the JAX package split
-    apart: its two best candidates (k = 6 tiles and k = 7) in float64, in
-    the port's float32 and in the JAX package's float32. float64 puts k =
-    6 ahead by less than two float32 ulps of the costs (0.125 each at
-    2^20), the port picks k = 6, the JAX package k = 7. Run with -s to
-    print them."""
+    """m32_short's DP step 13, a sub-ulp tie: its two best candidates (k =
+    6 tiles and k = 7) in float64, in the port's float32 and in the JAX
+    package's float32 called eagerly and under jax.jit (as its encoder
+    runs it). float64 puts k = 6 ahead by less than two float32 ulps of
+    the costs (0.125 each at 2^20); the port picks k = 6, and so does the
+    jitted JAX function, whose two candidates tie exactly (argmin's first
+    minimum): starts [0, 7, ...]. The eager JAX function picks k = 7:
+    starts [0, 6, ...]. The reference's own split at this tie depends on
+    how XLA compiles its float32 sums. Run with -s to print them."""
     ll, d, n_valid, tile_bytes = corpus.block_plan_case("m32_short")
     want, cand64 = plan_float64(ll, d, n_valid, tile_bytes)
     stats = {}
@@ -228,26 +262,35 @@ def test_block_plan_near_tie_witness(monkeypatch):
         opt.append(min(opt[j - k] + cost[j - 1, k - 1]
                        for k in range(1, min(j, 8) + 1)))
     port = {k: opt[13 - k] + cost[12, k - 1] for k in (6, 7)}
-    spy = _ArgminSpy()
-    monkeypatch.setattr(jc, "jnp", spy)
-    jsplit, _ = jc.block_plan(
-        jnp.asarray(ll, jnp.int32), jnp.asarray(d, jnp.int32),
-        jnp.int32(n_valid), max_merge=8,
-        tile_bytes=jnp.asarray(tile_bytes, jnp.int32))
-    jax_c = spy.rows[12]
+    jax_c, jax_starts = {}, {}
+    for how, run in (("eager", _jax_block_plan_eager),
+                     ("jit", _jax_block_plan_jit)):
+        spy = _ArgminSpy()
+        monkeypatch.setattr(jc, "jnp", spy)
+        jsplit, _ = run(ll, d, n_valid, tile_bytes)
+        jax_starts[how] = np.flatnonzero(np.asarray(jsplit)).tolist()
+        assert len(spy.rows) == ll.shape[0]     # one row per DP step
+        jax_c[how] = spy.rows[12]
+    monkeypatch.undo()
     f64 = {k: cand64[12, k - 1] for k in (6, 7)}
     print(f"step 13 candidates k=6 / k=7: float64 {float(f64[6])!r} / "
           f"{float(f64[7])!r} (margin {float(f64[7] - f64[6])!r}); port "
           f"float32 {float(port[6])!r} / {float(port[7])!r}; JAX float32 "
-          f"{float(jax_c[5])!r} / {float(jax_c[6])!r}")
+          f"eager {float(jax_c['eager'][5])!r} / "
+          f"{float(jax_c['eager'][6])!r}, jit {float(jax_c['jit'][5])!r} / "
+          f"{float(jax_c['jit'][6])!r}")
     print(f"block starts: float64 {np.flatnonzero(want).tolist()}, port "
-          f"{starts.tolist()}, JAX {np.flatnonzero(np.asarray(jsplit)).tolist()}")
+          f"{starts.tolist()}, JAX eager {jax_starts['eager']}, JAX jit "
+          f"{jax_starts['jit']}")
     assert 0 < f64[7] - f64[6] < 0.25
     np.testing.assert_array_equal(split.numpy(), want)
     assert 7 in starts and int(np.argmin(cand64[12])) + 1 == 6
-    assert port[6] < port[7]                    # the port's picks k = 6
-    assert jax_c[6] < jax_c[5]                  # JAX's float32 picks k = 7
-    assert list(np.flatnonzero(np.asarray(jsplit))[:2]) == [0, 6]
+    assert port[6] < port[7]                    # the port picks k = 6
+    assert jax_c["eager"][6] < jax_c["eager"][5]    # eager JAX picks k = 7
+    assert jax_starts["eager"][:2] == [0, 6]
+    assert jax_c["jit"][5] <= jax_c["jit"][6]       # jitted JAX picks k = 6
+    assert jax_starts["jit"][:2] == [0, 7]
+    assert jax_starts["jit"] == starts.tolist()
 
 
 def test_block_plan_wrapper_checks():
@@ -297,54 +340,89 @@ def test_huffman_codes_match_jax(name):
     assert (lengths[6] > 0).all()           # every symbol used
 
 
+def _count(arr, length, key, top, at_most=False):
+    """The kernel's branchless binary search: #{i < length : arr[i] < key}
+    (<= with at_most) by steps top, top / 2, ..., 1 (length < 2 top)."""
+    pos, step = 0, top
+    while step:
+        p = pos + step
+        if p <= length and (arr[p - 1] <= key if at_most
+                            else arr[p - 1] < key):
+            pos = p
+        step //= 2
+    return pos
+
+
+def _top(length):
+    return 1 << (length.bit_length() - 1) if length else 0
+
+
 def codes_model(freqs: np.ndarray, max_bits: int):
-    """numpy model of csrc/huffman_codes.cu for one row: the rank sort of
-    the unique keys (weight, symbol); per level, each leaf and package
-    placed by a binary search of the other list (leaf first on ties), the
-    leaves' positions kept; the top-down counts of leaves placed before
-    m; canonical codes by rank among equal lengths; reversed codes."""
+    """numpy model of csrc/huffman_codes.cu for one row: the used symbols
+    below INF as unique keys f << 16 | symbol, each placed at the count of
+    the keys below it; per level the packages below INF (a prefix), each
+    leaf placed at j + #(packages < it) and each package at q + #(leaves
+    <= it), over the finite prefix only, each leaf's position kept; the
+    top-down counts as the leaves placed before m; the lengths back in
+    symbol order (the
+    one used symbol at or above INF by the first-in-order rule); ranks
+    among equal lengths per warp of 32 symbols plus the counts of the
+    warps before; next_code from the counts; reversed codes."""
     n = freqs.shape[0]
     f = freqs.astype(np.int64)
     active = f > 0
-    k = int(active.sum())
-    key = np.where(active, f, INF_W)
-    s = np.arange(n)
-    pos = np.array([int(((key < key[t]) | ((key == key[t]) & (s < t))).sum())
-                    for t in range(n)])
-    lv = np.empty(n, np.int64)
-    order = np.empty(n, np.int64)
-    lv[pos], order[pos] = key, s
-    w = np.concatenate([lv, np.full(n, INF_W)])
-    rank_l = [s]                              # level 1: leaf j at j
-    for _ in range(1, max_bits):
-        pw = np.minimum(w[0::2] + w[1::2], INF_W)
-        rl = s + np.searchsorted(pw, lv, side="left")
-        rp = s + np.searchsorted(lv, pw, side="right")
-        w = np.empty(2 * n, np.int64)
-        w[rl], w[rp] = lv, pw
-        rank_l.append(rl)
-    length = np.zeros(n, np.int64)
-    m = max(2 * k - 2, 0)
+    fin = active & (f < INF_W)
+    k, kf = int(active.sum()), int(fin.sum())
+    keys = [int(f[s]) << 16 | s for s in range(n) if fin[s]]
+    srt = [0] * kf
+    for x in keys:
+        srt[sum(y < x for y in keys)] = x
+    lv = [x >> 16 for x in srt]
+    order = [x & 0xFFFF for x in srt]
+    cur, at_level = lv, {}
+    for lvl in range(1, max_bits):
+        pk = []
+        for q in range(len(cur) // 2):
+            if cur[2 * q] + cur[2 * q + 1] < INF_W:
+                pk.append(cur[2 * q] + cur[2 * q + 1])
+        total = kf + len(pk)
+        nxt, at_level[lvl] = [None] * total, []
+        for j, x in enumerate(lv):
+            at = j + _count(pk, len(pk), x, _top(len(pk)))
+            nxt[at] = x
+            at_level[lvl].append(at)
+        for q, x in enumerate(pk):
+            nxt[q + _count(lv, kf, x, _top(kf), at_most=True)] = x
+        assert None not in nxt and nxt == sorted(nxt)
+        cur = nxt
+    m, nleaf = max(2 * k - 2, 0), [0] * max_bits
     for lvl in range(max_bits - 1, -1, -1):
-        idx = min(max(m, 0), 2 * n)
-        nleaf = int(((lv < INF_W) & (rank_l[lvl] < idx)).sum())
-        length += s < nleaf
-        m = 2 * (m - nleaf)
-    lj = np.where(s < k, length, 0)
-    if k == 1:
-        lj = (s == 0).astype(np.int64)
+        idx = min(m, 2 * n)
+        at = range(kf) if lvl == 0 else at_level[lvl]
+        nleaf[lvl] = sum(a < idx for a in at)
+        m = 2 * (m - nleaf[lvl])
     lengths = np.zeros(n, np.int64)
-    lengths[order] = lj
-    lengths = np.where(active, lengths, 0)
-    bl = np.bincount(lengths, minlength=max_bits + 1)
-    bl[0] = 0
+    for j in range(kf):
+        lengths[order[j]] = (j == 0) if k == 1 else sum(j < x for x in nleaf)
+    if k == 1 and kf == 0:
+        s = int(np.flatnonzero(active)[0])
+        if n == 1 or (s == 0 and f[s] == INF_W):
+            lengths[s] = 1
+    cnt = np.zeros(16, np.int64)
+    rank = np.zeros(n, np.int64)
+    for r0 in range(0, n, 32):
+        lens = [int(lengths[s]) if s < n else 0 for s in range(r0, r0 + 32)]
+        for lane, ln in enumerate(lens):
+            if r0 + lane < n:
+                rank[r0 + lane] = cnt[ln] + lens[:lane].count(ln)
+        for ln in set(lens):
+            cnt[ln] += lens.count(ln)
+    nxt_code = [sum(int(cnt[i]) << (b - i) for i in range(1, b))
+                for b in range(16)]
     codes, rev = np.zeros(n, np.int64), np.zeros(n, np.int64)
     for t in np.flatnonzero(lengths):
         ln = int(lengths[t])
-        nxt = 0
-        for b in range(1, ln + 1):
-            nxt = (nxt + int(bl[b - 1])) << 1
-        codes[t] = nxt + int((lengths[:t] == ln).sum())
+        codes[t] = nxt_code[ln] + rank[t]
         rev[t] = int(format(int(codes[t]), f"0{ln}b")[::-1], 2)
     return lengths, codes, rev
 
@@ -361,13 +439,10 @@ def test_huffman_codes_kernel_model_matches_plain(name):
 
 
 @pytest.mark.parametrize("n,max_bits", [(1, 1), (2, 1), (30, 15), (512, 15),
-                                        (300, 9)])
+                                        (300, 9), (19, 7), (30, 7),
+                                        (286, 11), (512, 1), (2, 15)])
 def test_huffman_codes_kernel_model_other_alphabets(n, max_bits):
-    rng = np.random.default_rng(n + max_bits)
-    rows = np.stack([rng.integers(0, 1000, n), rng.integers(0, 3, n)
-                     * rng.integers(0, 50, n), rng.zipf(1.3, n) % 100000,
-                     rng.integers(-5, 5, n)]).astype(np.int64)
-    rows[:, 1 << max_bits:] = 0
+    rows = corpus.huffman_rows(n, max_bits)
     want = HC.huffman_codes_ref(torch.from_numpy(rows), max_bits)
     for b in range(rows.shape[0]):
         for g, w in zip(codes_model(rows[b], max_bits), want):

@@ -1104,13 +1104,29 @@ def test_block_plan_kernel_merge_bounds(cuda, mm, n_valid):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 3000])
 def test_block_plan_kernel_tile_counts(cuda, M):
-    """One tile, and more tiles than the DP's warps take in one round
-    (3,000 of them, all below the float32-exact count of 2^24 / 32768)."""
+    """One tile, and more tiles than the DP stages in shared memory at
+    once (3,000 of them, all below the float32-exact count of 2^24 /
+    32768)."""
     ll, d = corpus.tile_histograms(M, M)
     ll //= 8
     d //= 8
     tile_bytes = np.full(M, 32768, np.int64)
     _same_plan(cuda, ll, d, M, tile_bytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm", [1, 3, 8, 32])
+@pytest.mark.parametrize("M", [1, 2, 17, 32, 128, 600])
+def test_block_plan_kernel_tiles_and_merge_bounds(cuda, M, mm):
+    """The chain's two widths (8 for mm <= 8, 32 above), one and two CTAs
+    of costs, a ragged last CTA, the main path's 32 and 128 tiles, and 600
+    tiles: more rows than one DP stage holds (480 at mm <= 8, 96 above)."""
+    ll, d = corpus.tile_histograms(M, M + mm)
+    ll //= 8
+    d //= 8
+    tile_bytes = np.full(M, 32768, np.int64)
+    tile_bytes[-1] = 1234
+    _same_plan(cuda, ll, d, max(M - 1, 1), tile_bytes, mm)
 
 
 @pytest.mark.cuda
@@ -1132,19 +1148,13 @@ def _same_codes(freqs, max_bits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,max_bits", [(1, 1), (2, 1), (19, 5), (30, 15),
-                                        (286, 9), (286, 15), (512, 15),
-                                        (300, 11)])
+@pytest.mark.parametrize("n,max_bits", [(19, 5), (286, 9), (300, 11)] + [
+    (n, b) for n in (1, 2, 19, 30, 286, 512) for b in (1, 7, 11, 15)])
 def test_huffman_codes_kernel_alphabets(cuda, n, max_bits):
-    """Random, sparse and heavy-tailed rows of other sizes and limits (the
-    limit large enough for every used symbol)."""
-    rng = np.random.default_rng(n * max_bits)
-    rows = [rng.integers(0, 1000, n), rng.integers(0, 3, n)
-            * rng.integers(0, 50, n), rng.zipf(1.3, n) % 100000,
-            rng.integers(-5, 5, n)]
-    freqs = np.stack(rows).astype(np.int64)
-    if n > 1 << max_bits:
-        freqs[:, 1 << max_bits:] = 0
+    """Random, sparse, heavy-tailed and tied rows, one and two used
+    symbols and frequencies at and above 2^28, of other sizes and limits
+    (the limit large enough for every used symbol)."""
+    freqs = corpus.huffman_rows(n, max_bits)
     _same_codes(torch.from_numpy(freqs).to(cuda), max_bits)
 
 

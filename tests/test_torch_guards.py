@@ -113,6 +113,7 @@ _FORBIDDEN = re.compile(
 
 def test_port_sources_do_not_import_jax():
     for p in [ROOT / "chip_smoke.py", ROOT / "kernel_turns.py",
+              ROOT / "block_stage_probe.py",
               *sorted((ROOT / "deflate_compression_tpu_torch").rglob("*.py"))]:
         for line in p.read_text().splitlines():
             assert not _FORBIDDEN.match(line), f"{p}: {line}"
