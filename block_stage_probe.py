@@ -4,15 +4,19 @@
 
 For each TREE (a checkout of this repository, for example the parent
 commit unpacked with `git archive` into a git-ignored directory, and `.`),
-copies its `csrc/block_plan.cu` and `csrc/huffman_codes.cu` with clock64
-and %globaltimer stamps added at the stage boundaries of the design it
-finds there (a two-kernel `block_plan` and a `huffman_codes` that ranks by
-an O(n) count per thread, or the one-launch `block_plan` and the
-`huffman_codes` over the used symbols' lists), builds the copies with nvcc
-under the git-ignored `_variants/`, and runs them on the arguments one
-`encode_shard` of a 1 MB and a 4 MB shard of `corpus.build_corpus` hands
-the two ops (`corpus.block_stage_inputs`), checking each result against
-its plain version. It prints one JSON line per tree and kernel:
+copies its `csrc/block_plan.cu`, `csrc/huffman_codes.cu` and
+`csrc/block_layout.cu` and, where the tree has it, `csrc/pack_words.cu`
+(with the headers they include) with clock64 and %globaltimer stamps
+added at the stage boundaries of the design it finds there (a two-kernel
+`block_plan` and a `huffman_codes` that ranks by an O(n) count per
+thread, or the one-launch `block_plan` and the `huffman_codes` over the
+used symbols' lists; a `block_layout` that walks or scans), builds the
+copies with nvcc under the git-ignored `_variants/`, and runs them on
+the arguments one `encode_shard` of a 1 MB and a 4 MB shard of
+`corpus.build_corpus` hands the ops (`corpus.block_stage_inputs`;
+block_layout on that encode's layout, `corpus.layout_inputs`), checking
+each result against its plain version. It prints one JSON line per tree
+and kernel:
 
   * `huffman_codes`, 11 and 7 bits: per stage, the median and the largest
     clock64 cycles over the rows (the CTA's thread 0 stamps them), each
@@ -23,6 +27,14 @@ its plain version. It prints one JSON line per tree and kernel:
     CTA's end), the gap to the DP's start, the DP's span and its stages in
     clock64 cycles, the DP loop's cycles a step, the queued and profiler
     ms;
+  * `block_layout`: thread 0's clock64 cycles from the kernel's start to
+    its end (the walk or the scan, with the loads and stores), the queued
+    ms of 20 launches and the profiler's ms of one;
+  * `pack_words`: the count pass's span from its first CTA's start to
+    the last ticket and from there to the last CTA's end (globaltimer),
+    and the last CTA's stages in clock64 cycles: the tiles' prefix, the
+    layout scan (reading each block's T_b and rest), the tiles' first
+    bits (median of 20 calls), beside each pass's profiler ms;
   * an empty kernel's queued ms per launch (the least a launch costs).
 
 The stamps cost a few instructions a stage; the numbers describe the
@@ -192,11 +204,90 @@ def block_plan_stamped(src: str):
     return patch(src, edits), False
 
 
-def build(name: str, src: str) -> ctypes.CDLL:
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    path = OUT_DIR / f"{name}.cu"
+def build(name: str, src: str, headers: dict | None = None) -> ctypes.CDLL:
+    """Build `src` as _variants/probe/<name>/<name>.cu beside `headers`
+    (file name -> text)."""
+    folder = OUT_DIR / name
+    folder.mkdir(parents=True, exist_ok=True)
+    for hname, text in (headers or {}).items():
+        (folder / hname).write_text(text)
+    path = folder / f"{name}.cu"
     path.write_text(src)
     return ctypes.CDLL(str(cuda_build.build(path)))
+
+
+def local_headers(csrc: Path, src: str) -> dict:
+    """The headers `src` includes from its own folder, by name."""
+    import re
+    return {h: (csrc / h).read_text()
+            for h in re.findall(r'^#include "([^"]+)"', src, re.M)}
+
+
+STAMPS = ("__device__ unsigned long long g_stamps[16];\n"
+          'extern "C" int probe_stamps(void* out, int reset) {\n'
+          "  unsigned long long z[16] = {~0ull};\n"
+          "  if (reset) return static_cast<int>(cudaMemcpyToSymbol(\n"
+          "      g_stamps, z, sizeof z));\n"
+          "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_stamps,\n"
+          "                                               sizeof z));\n"
+          "}\n")
+
+
+def layout_stamped(src: str) -> str:
+    """block_layout.cu (either design) with thread 0's clock64 from the
+    kernel's start to its end in g_stamps[0]."""
+    return patch(src, [
+        ("\nnamespace {\n",
+         "\nnamespace {\n__device__ unsigned long long g_stamps[16];\n"),
+        ("}  // namespace\n",
+         "}  // namespace\n" + STAMPS.split("\n", 1)[1]),
+        ("int64_t* __restrict__ p_end) {",
+         "int64_t* __restrict__ p_end) {\n"
+         "  const unsigned long long c0 = clock64();"),
+        ("  if (threadIdx.x == 0) *p_end = p;",
+         "  if (threadIdx.x == 0) *p_end = p;\n  __syncthreads();\n"
+         "  if (threadIdx.x == 0) g_stamps[0] = clock64() - c0;")])
+
+
+def pack_stamped(src: str) -> str:
+    """pack_words.cu with g_stamps: [0] the count pass's first CTA start,
+    [1] its last ticket, [5] the last CTA's end (globaltimer ns); [2]-[4]
+    the last CTA's tiles' prefix, layout scan (with each block's T_b and
+    rest), tiles' first bits (clock64 cycles of its thread 0)."""
+    start = ("  if (threadIdx.x == 0) {\n    unsigned long long g;\n" +
+             GT.format("g") + "    atomicMin(g_stamps + 0, g);\n  }\n")
+    ticket = ("  if (threadIdx.x == 0) {\n    unsigned long long g;\n" +
+              GT.format("g") + "    atomicMax(g_stamps + 1, g);\n  }\n")
+    return patch(src, [
+        ('#include "layout_scan.cuh"\n',
+         '#include "layout_scan.cuh"\n\nnamespace {\n'
+         "__device__ unsigned long long g_stamps[16];\n}\n"),
+        ("}  // namespace\n",
+         "}  // namespace\n" + STAMPS.split("\n", 1)[1]),
+        ("layout::Shared& s_lay) {\n",
+         "layout::Shared& s_lay) {\n"
+         "  const unsigned long long ca = clock64();\n"),
+        ("  const int64_t p_end = layout::scan(",
+         "  const unsigned long long cb = clock64();\n"
+         "  const int64_t p_end = layout::scan("),
+        ("      s_lay);\n  for (int t = threadIdx.x;",
+         "      s_lay);\n  const unsigned long long cc = clock64();\n"
+         "  for (int t = threadIdx.x;"),
+        ("    a.out[3 * a.nb + 1] = p_end;\n  }\n}",
+         "    a.out[3 * a.nb + 1] = p_end;\n  }\n  __syncthreads();\n"
+         "  if (threadIdx.x == 0) {\n    unsigned long long g;\n" +
+         GT.format("g") +
+         "    g_stamps[2] = cb - ca;\n    g_stamps[3] = cc - cb;\n"
+         "    g_stamps[4] = clock64() - cc;\n    g_stamps[5] = g;\n  }\n}"),
+        ("  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
+         "  for (int64_t i = int64_t{u} * kThreads",
+         start +
+         "  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
+         "  for (int64_t i = int64_t{u} * kThreads"),
+        ("  __threadfence();\n  __syncthreads();\n  if (threadIdx.x == 0)\n"
+         "    s_last = atomicInc(",
+         "  __threadfence();\n  __syncthreads();\n" + ticket +
+         "  if (threadIdx.x == 0)\n    s_last = atomicInc(")])
 
 
 def queued(launch, n: int = 20):
@@ -303,7 +394,103 @@ def probe_tree(tree: Path, inputs: dict) -> dict:
             "dp_loop_cycles_per_step": float(np.median(q[:, 8])) / M,
             "gap_us_median": float(np.median(q[1:, 0] - q[:-1, 4]) / 1e3),
             "profiler_ms": sum(profiled_ms(lambda: run(0), 5).values())}
+    probe_layout_and_pack(tree, inputs, out, tag)
     return out
+
+
+def probe_layout_and_pack(tree: Path, inputs: dict, out: dict,
+                          tag: str) -> None:
+    """block_layout's and pack_words' rows of probe_tree."""
+    from deflate_compression_tpu_torch import corpus
+    from deflate_compression_tpu_torch.ops import block_layout as BL
+    from deflate_compression_tpu_torch.ops import pack_words as PW
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    raw = cuda_build.raw_stream()
+    csrc = tree / "deflate_compression_tpu_torch" / "csrc"
+    src = (csrc / "block_layout.cu").read_text()
+    lib = build(f"block_layout_{tag}", layout_stamped(src),
+                local_headers(csrc, src))
+    lib.block_layout_launch.argtypes = [vp, vp, i64, vp, vp, vp, i32, vp]
+    lib.probe_stamps.argtypes = [vp, i32]
+    has_pack = (csrc / "pack_words.cu").exists()
+    if has_pack:
+        psrc = (csrc / "pack_words.cu").read_text()
+        plib = build(f"pack_words_{tag}", pack_stamped(psrc),
+                     local_headers(csrc, psrc))
+        plib.pack_words_launch.argtypes = [
+            *[vp] * 13, i64, i32, i64, *[vp] * 5, i32, i32, vp]
+        plib.probe_stamps.argtypes = [vp, i32]
+    host = np.zeros(16, np.uint64)
+    for size, got in inputs.items():
+        a = got["pack_words"][2]
+        rest, sto = corpus.layout_inputs(a)
+        nb = rest.shape[0]
+        o = torch.empty(2 * nb + 1, dtype=torch.int64, device="cuda")
+
+        def run(_i=0):
+            rc = lib.block_layout_launch(
+                rest.data_ptr(), sto.data_ptr(), nb, o.data_ptr(),
+                o[nb:].data_ptr(), o[2 * nb:].data_ptr(), 0, raw(0))
+            if rc:
+                raise RuntimeError(f"launch failed: cudaError {rc}")
+        cyc = []
+        for _ in range(20):
+            run()
+            torch.cuda.synchronize()
+            lib.probe_stamps(host.ctypes.data, 0)
+            cyc.append(float(host[0]))
+        want = BL.block_layout_ref(rest.cpu(), sto.cpu())
+        same = (torch.equal(o[:nb].cpu(), want[0])
+                and torch.equal(o[nb:2 * nb].cpu(), want[1]))
+        ms, covered = queued(run)
+        out[f"block_layout_{size}"] = {
+            "blocks": nb, "equal_plain": same,
+            "kernel_cycles_median_max": median_max(cyc),
+            "queued_ms": ms, "covered": covered,
+            "profiler_ms": sum(profiled_ms(run, 5).values())}
+        if not has_pack:
+            continue
+        S, NB = a[0].shape[0], a[0].shape[0] // 32768
+        NU = S // 4096
+        words = torch.empty(a[14], dtype=torch.int64, device="cuda")
+        off = torch.empty(S, dtype=torch.int64, device="cuda")
+        po = torch.empty(3 * NB + 2, dtype=torch.int64, device="cuda")
+        scr = torch.empty(NU + 4 * NB + 1, dtype=torch.int64,
+                          device="cuda")
+        ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+        def pack(which):
+            rc = plib.pack_words_launch(
+                *[t.data_ptr() for t in a[:13]], S, int(a[13]), a[14],
+                words.data_ptr(), off.data_ptr(), po.data_ptr(),
+                scr.data_ptr(), ticket.data_ptr(), which, 0, raw(0))
+            if rc:
+                raise RuntimeError(f"launch failed: cudaError {rc}")
+        rows = []
+        for _ in range(20):
+            plib.probe_stamps(host.ctypes.data, 1)
+            pack(0)
+            pack(1)
+            torch.cuda.synchronize()
+            plib.probe_stamps(host.ctypes.data, 0)
+            rows.append(host.astype(np.float64))
+        q = np.array(rows)
+        want = PW.pack_words_ref(*a)
+        same = (torch.equal(words, want.words)
+                and torch.equal(off, want.off_pos)
+                and torch.equal(po[:NB], want.block_base))
+        prof = profiled_ms(lambda: (pack(0), pack(1)), 5)
+        out[f"pack_words_{size}"] = {
+            "units": NU, "blocks": NB, "equal_plain": same,
+            "count_first_start_to_last_ticket_us": float(
+                np.median(q[:, 1] - q[:, 0]) / 1e3),
+            "last_ticket_to_last_cta_end_us": float(
+                np.median(q[:, 5] - q[:, 1]) / 1e3),
+            "last_cta_cycles_median": {
+                "tile_prefix": float(np.median(q[:, 2])),
+                "layout_scan_with_rest": float(np.median(q[:, 3])),
+                "tile_first_bits": float(np.median(q[:, 4]))},
+            "profiler_ms": {k: v for k, v in prof.items()}}
 
 
 def main(argv) -> int:

@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints one line and ends with torch.cuda.synchronize()):
   1. device: the card's name and power limit;
-  2. build: start nvcc on every CUDA source of csrc/ at once (ten),
+  2. build: start nvcc on every CUDA source of csrc/ at once (eleven),
      wait for all;
   3. tile_histogram against its plain PyTorch version, exact equality, on
      int32 and int64 symbols, rows 1-128, C = 30, 286 and MAX_CLASSES, and
@@ -18,7 +18,8 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
   4. the encode slice: ZlibCodec.compress of an ~8.5 MB corpus on the card,
      checked by zlib.decompress, with the launch counts of its six
      kernels (find_matches, lz_parse, tile_histogram, block_plan,
-     huffman_codes and block_layout: 1, 1, 2, 1, 2 and 1 per shard);
+     huffman_codes and pack_words: 1, 1, 2, 1, 2 and 2 per shard;
+     block_layout 0: its scan runs inside pack_words' count pass);
   5. encode_shard on the card against the port on the CPU, bit for bit, for
      the first and the last shard, and the whole stream of phase 4;
   6. build: decode_symbols.cu, lut_gather.cu, build_tables.cu and
@@ -82,7 +83,9 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      match and parse kernels), and tokenize's peak device memory at 4 MB;
  15. the encoder's block stage: block_plan, huffman_codes and block_layout
      against their plain versions on the inputs every encode_shard of
-     phase 4's and phase 10's corpora handed them, of a block_type="fixed"
+     phase 4's and phase 10's corpora handed them (block_layout, which the
+     encoder runs inside pack_words, on each encode's layout:
+     `corpus.layout_inputs`), of a block_type="fixed"
      and a "stored" encode of 2 MB, and on the cases of
      `corpus.block_plan_case`, `huffman_case` and `layout_case`: the split,
      n_blocks, code lengths, codes, reversed codes and the layout exactly,
@@ -91,11 +94,17 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      second-best candidate; each kernel's and plain version's times as in
      phase 3 at phase 4's first shard and phase 10's, beside its bound
      (bytes over 3.35 TB/s or operations over the float32 or int32 rate),
-     its serial depth (DP steps, code-length levels, layout steps) and
-     the serial-depth bound of block_plan and huffman_codes (an empty
-     kernel's queued launch plus the chain's steps at the SM clock
-     nvidia-smi reads), with block_plan's DP time a step from the clock64
-     cycles its kernel reports.
+     its serial depth (DP steps, code-length levels, layout scan levels)
+     and serial-depth bound (an empty kernel's queued launch plus the
+     chain's steps at the SM clock nvidia-smi reads), with block_plan's
+     DP time a step from the clock64 cycles its kernel reports;
+ 16. the encoder's pack: pack_words against its plain version, exactly
+     (words, total_bits, layout, token bits, off_pos), on every call of
+     phase 15 and on `corpus.pack_case`'s synthetic shards, its layout
+     against block_layout's plain version, the wrapper under sync debug
+     mode "error"; its times as in phase 3 at phase 4's first shard and
+     phase 10's, each pass (count, write) by the profiler, beside the
+     bound (bytes over 3.35 TB/s).
 Any failure raises, so the script exits non-zero. Before the last line it
 prints the kernels' JSON line: per kernel its launches on the main path
 (the 1 MB-shard encode of phase 4 and decode of phase 8), on the 4 MB-
@@ -121,7 +130,11 @@ phase 7's batch; `rounds_run_4mb` on phase 10's) and `plain_rounds`;
 block_plan, huffman_codes and block_layout carry `serial_depth` and the
 same at phase 10's first shard (`*_4mb`), huffman_codes its 7-bit call
 (`ms_7bit`, `*_7bit_4mb`), block_plan `max_rel_err_cost`, `min_gap` and
-`dp_ns_per_step` (`*_4mb`), both `serial_bound_ms` (`*_4mb`, `*_7bit`).
+`dp_ns_per_step` (`*_4mb`), the three `serial_bound_ms` (`*_4mb`,
+`*_7bit`), block_layout `main_path`; pack_words carries `count_ms` and
+`write_ms` (each pass by the profiler), the same at phase 10's first
+shard (`*_4mb`), `calls_held`, `layout_scan_max_abs_err` and
+`peak_gib_4mb_encode` (phase 10's encode).
 The last line is the JSON result {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -170,6 +183,8 @@ INT32_LANES = 64
 BOOST_GHZ = 1.98
 ENCODE_KERNELS = ("find_matches", "lz_parse")
 BLOCK_KERNELS = ("block_plan", "huffman_codes", "block_layout")
+PACK = "pack_words"
+PACK_PASSES = ("pack_count_kernel", "pack_write_kernel")
 F32_TFLOPS = 67.0                # H100 SXM float32 outside the tensor cores
 # lz_parse's integer operations per position, counted in csrc/lz_parse.cu:
 # the run test and search (about 4), three chain rounds (6 each), the
@@ -180,14 +195,16 @@ TABLE_BYTES = 17_792             # one block's decode tables (decode_symbols.cu)
 
 def timings(kernel: str, fn, plain, n: int, prof_n: int,
             bound_bytes: int, reps: int = 25, plain_n: int | None = None,
-            bound_ops: int = 0, ops_rate: float | None = None) -> dict:
+            bound_ops: int = 0, ops_rate: float | None = None,
+            expect=()) -> dict:
     """A kernel's and its plain version's times: per call (`cuda_ms`), on
     the device per launch (`device_ms`, n calls, plain_n of a slow plain
     version; plain_n=0 for a plain version that launches more kernels than
     the launch queue holds behind the spin: there its profiler sum stands
     for its device time) and by kernel name under
     torch.profiler (`profiled_ms`, prof_n calls; the kernel's own entries,
-    and every device entry of the plain version); and the bound, the
+    and every device entry of the plain version; the profiler's window
+    must hold `kernel` and each name of `expect`); and the bound, the
     larger of the bytes the function must move over the card's memory rate
     and its operations over `ops_rate` (per second; the int32 rate by
     default)."""
@@ -195,7 +212,7 @@ def timings(kernel: str, fn, plain, n: int, prof_n: int,
     t["device_ms"], t["held"] = device_ms(fn, n)
     t["plain_device_ms"], t["plain_held"] = (
         device_ms(plain, plain_n or n) if plain_n != 0 else (None, False))
-    by = profiled_ms(fn, prof_n)
+    by = profiled_ms(fn, prof_n, (kernel, *expect))
     t["prof_ms"] = sum(v for k, v in by.items() if kernel in k)
     t["by_kernel"] = {re.search(r"\w*_kernel|$", k).group() or k: v
                       for k, v in by.items() if kernel in k}
@@ -271,6 +288,7 @@ def main() -> int:
     from deflate_compression_tpu_torch.ops import huffman_codes as HC
     from deflate_compression_tpu_torch.ops import lut_gather as LG
     from deflate_compression_tpu_torch.ops import lz_parse as LP
+    from deflate_compression_tpu_torch.ops import pack_words as PW
 
     dev = torch.device("cuda")
     # ---------------------------------------------------------- 1. device
@@ -287,7 +305,7 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = [cuda_build.Build(src) for src in (
         H.SOURCE, DS.SOURCE, LG.SOURCE, BT.SOURCE, CS.SOURCE, FM.SOURCE,
-        LP.SOURCE, BP.SOURCE, HC.SOURCE, BL.SOURCE)]
+        LP.SOURCE, BP.SOURCE, HC.SOURCE, BL.SOURCE, PW.SOURCE)]
     lib = builds[0].wait()
     t_hist = time.perf_counter() - t0
     ds_lib, lg_lib, bt_lib, cs_lib, *rest_libs = (
@@ -399,6 +417,8 @@ def main() -> int:
     cli = cli_phase(raw, blob, stats, px, dev)
     lz = lz77_phase(raw, cfg, dev)
     blk = block_stage_phase(raw, cfg, dev)
+    pk = pack_phase(blk, dev)
+    del blk["packs"], blk["first_packs"]
 
     def new_paths(name):
         paths = {"launches_4mb": large[name],
@@ -477,7 +497,26 @@ def main() -> int:
                "Pallas kernel)"),
               ("block_layout", "deflate_compression_tpu/format/deflate.py:"
                "520-534, a lax.scan (left to XLA there: no Pallas "
-               "kernel)")))]}))
+               "kernel)"))),
+        {"name": PACK, "route": "cuda",
+         "source": "deflate_compression_tpu_torch/csrc/pack_words.cu",
+         "replaces": "deflate_compression_tpu/core/bits.py:95,182 "
+         "(pack_items64_to_words, pack_items96_to_words) and "
+         "format/deflate.py:421-640 (token items, layout, item offsets, "
+         "the two packs, stored payloads; left to XLA there: no Pallas "
+         "kernel)",
+         "launches": enc_launches[PACK], **new_paths(PACK),
+         "max_abs_err": pk["max_abs_err"], **entry(pk["times"]["1mb"]),
+         "library_ms": None, "calls_held": pk["calls"],
+         "by_kernel": pk["times"]["1mb"]["by_kernel"],
+         "count_ms": pk["times"]["1mb"]["count_ms"],
+         "write_ms": pk["times"]["1mb"]["write_ms"],
+         **{f"{k}_4mb": pk["times"]["4mb"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "share_of_bound", "call_ms", "plain_call_ms",
+                      "prof_ms", "plain_prof_ms", "count_ms", "write_ms")},
+         "peak_gib_4mb_encode": large["peak_gib"],
+         "layout_scan_max_abs_err": pk["layout_err"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -1235,7 +1274,8 @@ def large_shard_phase(dev, mbs_1mb: float) -> dict:
     return {**launches,
             **{k: enc_launches[k] for k in ("tile_histogram",
                                             *ENCODE_KERNELS,
-                                            *BLOCK_KERNELS)},
+                                            *BLOCK_KERNELS, PACK)},
+            "peak_gib": peak_gib,
             "phases": ph, "device_ms": dev_ms, "bound_ms": bounds,
             "rounds_run": k_stats["rounds"]}
 
@@ -1375,26 +1415,27 @@ def counters() -> dict:
     from deflate_compression_tpu_torch.ops import huffman_codes as HC
     from deflate_compression_tpu_torch.ops import lut_gather as LG
     from deflate_compression_tpu_torch.ops import lz_parse as LP
+    from deflate_compression_tpu_torch.ops import pack_words as PW
     return {"tile_histogram": H.tile_histogram,
             "find_matches": FM.find_matches, "lz_parse": LP.lz_parse,
             "block_plan": BP.block_plan, "huffman_codes": HC.huffman_codes,
-            "block_layout": BL.block_layout,
+            "block_layout": BL.block_layout, PACK: PW.pack_words,
             "decode_symbols": DS.decode_symbols, "lut_gather": LG.lut_gather,
             "build_tables": BT.build_tables, "copy_sources": CS.resolve_bytes}
 
 
 def encode_counts(nsh: int) -> dict:
     """Each kernel's launches in an encode of nsh shards of more than one
-    tile, the blocks chosen by cost."""
+    tile, the blocks chosen by cost (the layout runs inside pack_words)."""
     return {"tile_histogram": 2 * nsh, **{k: nsh for k in ENCODE_KERNELS},
-            "block_plan": nsh, "huffman_codes": 2 * nsh, "block_layout": nsh,
-            **{k: 0 for k in DECODE_KERNELS}}
+            "block_plan": nsh, "huffman_codes": 2 * nsh, "block_layout": 0,
+            PACK: 2 * nsh, **{k: 0 for k in DECODE_KERNELS}}
 
 
 def decode_counts(n: int) -> dict:
     """Each kernel's launches in n decodes (flat batches or groups)."""
     return {"tile_histogram": 0, **{k: 0 for k in ENCODE_KERNELS},
-            **{k: 0 for k in BLOCK_KERNELS},
+            **{k: 0 for k in BLOCK_KERNELS}, PACK: 0,
             **{k: n for k in DECODE_KERNELS}}
 
 
@@ -1425,6 +1466,7 @@ from deflate_compression_tpu_torch.ops import block_layout as BL
 from deflate_compression_tpu_torch.ops import block_plan as BP
 from deflate_compression_tpu_torch.ops import histogram as H
 from deflate_compression_tpu_torch.ops import huffman_codes as HC
+from deflate_compression_tpu_torch.ops import pack_words as PW
 rank, world, init, out, dev, S = int(sys.argv[1]), int(sys.argv[2]), \
     sys.argv[3], sys.argv[4], sys.argv[6], int(sys.argv[7])
 raw = open(out + ".in", "rb").read()
@@ -1434,7 +1476,8 @@ mesh = make_mesh(info["group"], dev)
 compress_distributed(raw[:S], mesh, shard_size=S)    # warm-up
 torch.cuda.synchronize()
 FNS = {"tile_histogram": H.tile_histogram, "block_plan": BP.block_plan,
-       "huffman_codes": HC.huffman_codes, "block_layout": BL.block_layout}
+       "huffman_codes": HC.huffman_codes, "block_layout": BL.block_layout,
+       "pack_words": PW.pack_words}
 for f in FNS.values():
     f.launches = 0
 t0 = time.perf_counter()
@@ -1596,8 +1639,9 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
         raise AssertionError("2 gloo ranks: bytes or index differ from the "
                              "1-rank NCCL run")
     per_rank = [len(range(r, nsh, 2)) for r in range(2)]
-    if [[x[k] for k in ("tile_histogram", *BLOCK_KERNELS)] for x in ranks
-        ] != [[2 * n, n, 2 * n, n] for n in per_rank]:
+    if [[x[k] for k in ("tile_histogram", *BLOCK_KERNELS, PACK)]
+            for x in ranks] != [[2 * n, n, 2 * n, 0, 2 * n]
+                                for n in per_rank]:
         raise AssertionError(f"2 gloo ranks launched {ranks}")
     if info_r["resumed_at_shard"] != 4 or resumed != blob or \
             zlib.decompress(resumed) != raw or (first, second) != (
@@ -1660,6 +1704,7 @@ from deflate_compression_tpu_torch.ops import histogram as H
 from deflate_compression_tpu_torch.ops import huffman_codes as HC
 from deflate_compression_tpu_torch.ops import lut_gather as LG
 from deflate_compression_tpu_torch.ops import lz_parse as LP
+from deflate_compression_tpu_torch.ops import pack_words as PW
 
 
 def _counts():
@@ -1668,6 +1713,7 @@ def _counts():
         "block_plan": BP.block_plan.launches,
         "huffman_codes": HC.huffman_codes.launches,
         "block_layout": BL.block_layout.launches,
+        "pack_words": PW.pack_words.launches,
         "find_matches": FM.find_matches.launches,
         "lz_parse": LP.lz_parse.launches,
         "decode_symbols": DS.decode_symbols.launches,
@@ -1909,6 +1955,9 @@ def huffman_codes_ops(freqs, max_bits: int) -> int:
 SMEM_ROUND_CYCLES = 50
 # block_plan's DP step: one float32 add and log2(8) = 3 minima, 4 cycles each
 DP_STEP_CYCLES = 16
+# a level of the layout scan: three shuffles in flight (about 25 cycles)
+# and the composition's selects and adds (about 8)
+LAYOUT_LEVEL_CYCLES = 33
 
 
 def sm_clock_ghz() -> float:
@@ -1929,9 +1978,11 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
     """Phase 15: block_plan, huffman_codes and block_layout against their
     plain versions, on the inputs every encode_shard of phase 4's and
     phase 10's corpora and of a fixed and a stored 2 MB encode handed
-    them, and on corpus's block-stage cases; their times at phase 4's
-    first shard ("1mb") and phase 10's ("4mb"). Returns each kernel's
-    largest error, timings, serial depth and extra keys."""
+    them (block_layout on the layout that encode's pack_words ran inside
+    its count pass: `corpus.layout_inputs`), and on corpus's block-stage
+    cases; their times at phase 4's first shard ("1mb") and phase 10's
+    ("4mb"). Returns each kernel's largest error, timings, serial depth
+    and extra keys, and the pack_words calls for phase 16."""
     from deflate_compression_tpu_torch import corpus
     from deflate_compression_tpu_torch.corpus import build_corpus
     from deflate_compression_tpu_torch.format import constants as C
@@ -1941,6 +1992,7 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
     from deflate_compression_tpu_torch.ops import huffman_codes as HC
 
     calls = []                      # (label, row, args)
+    packs = []                      # (label, pack_words args)
     first = {}
     for size, data, S in (("1mb", raw, cfg.shard_size),
                           ("4mb", build_corpus(LARGE_CORPUS_BYTES),
@@ -1949,13 +2001,17 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
             x, vl, fin = shard_input(data, S, s_)
             got = corpus.block_stage_inputs(x.to(dev), vl, fin)
             if set(got) != {"block_plan", "huffman_codes 11-bit",
-                            "huffman_codes 7-bit", "block_layout"}:
+                            "huffman_codes 7-bit", "pack_words"}:
                 raise AssertionError(f"shard {s_} of {size}: the encode "
                                      f"called {sorted(got)}")
+            got["block_layout"] = (None, None, corpus.layout_inputs(
+                got["pack_words"][2]), {})
+            packs.append((f"{size} shard {s_}", got.pop("pack_words")[2]))
             calls += [(f"{size} shard {s_}", row, a)
                       for row, (_, _, a, _) in got.items()]
             if s_ == 0:
                 first[size] = {row: a for row, (_, _, a, _) in got.items()}
+                first[size]["pack_words"] = packs[-1][1]
     for btype, label in ((C.BTYPE_FIXED, "fixed"), (C.BTYPE_STORED,
                                                     "stored")):
         x, vl, _ = shard_input(raw[:2 << 20], 2 << 20, 0)
@@ -1963,6 +2019,9 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
                                         force_btype=btype)
         if "block_plan" in got:
             raise AssertionError(f"a {label} encode ran block_plan")
+        got["block_layout"] = (None, None, corpus.layout_inputs(
+            got["pack_words"][2]), {})
+        packs.append((f"2 MB {label}", got.pop("pack_words")[2]))
         calls += [(f"2 MB {label}", row, a)
                   for row, (_, _, a, _) in got.items()]
     for name in corpus.BLOCK_PLAN_CASES:
@@ -2049,7 +2108,10 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
             "block_layout_kernel", lambda: BL.block_layout(rest, sto),
             lambda: BL.block_layout_ref(rest, sto), 20, 5, 25 * NB + 8,
             reps=5, plain_n=0, bound_ops=6 * NB)
-        depth["block_layout", size] = NB
+        depth["block_layout", size] = max(NB - 1, 0).bit_length()
+        serial["block_layout", size] = (
+            floor + depth["block_layout", size] * LAYOUT_LEVEL_CYCLES
+            / ghz / 1e6)
         shown.append(
             f"{size} shard 0: block_plan ({M} tiles, {M} DP steps, "
             f"{dp_ns[size]:.2f} ns a step by its clock64 at {ghz:.3f} GHz, "
@@ -2059,7 +2121,10 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
             f"11 levels) {show(times['huffman_codes', size])}; 7-bit "
             f"({tuple(first[size]['huffman_codes 7-bit'][0].shape)}, 7 "
             f"levels) {show(times['huffman_codes_7bit', size])}; "
-            f"block_layout ({NB} steps) {show(times['block_layout', size])}")
+            f"block_layout ({NB} blocks, {depth['block_layout', size]} scan "
+            f"levels, serial-depth bound "
+            f"{serial['block_layout', size]:.5f} ms) "
+            f"{show(times['block_layout', size])}")
     gap, gap_at = min(gaps)
     print(f"phase 15 serial-depth bounds (an empty kernel {floor:.5f} ms a "
           f"launch, the SM clock {ghz:.3f} GHz): " + ", ".join(
@@ -2071,7 +2136,9 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
           f"{sum(n_calls.values())} calls ({n_calls}: every shard of phases "
           f"4 and 10, a fixed and a stored 2 MB encode, "
           f"{len(corpus.BLOCK_PLAN_CASES)} + {len(corpus.HUFFMAN_CASES)} + "
-          f"{len(corpus.LAYOUT_CASES)} cases); max abs err {err}; segment "
+          f"{len(corpus.LAYOUT_CASES)} cases; block_layout on the layout "
+          f"each encode's pack_words ran inside its count pass); max abs err "
+          f"{err}; segment "
           f"costs' largest relative error {rel:.3e}; smallest DP margin "
           f"between best and second-best candidate {gap:.4f} bits ({gap_at})"
           f"; {'; '.join(shown)}; no single PyTorch call computes any of "
@@ -2094,7 +2161,85 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
                                      **bound_keys("block_plan")},
                       "huffman_codes": {**t7,
                                         **bound_keys("huffman_codes")},
-                      "block_layout": {}}}
+                      "block_layout": {**bound_keys("block_layout"),
+                                       "main_path": "inside pack_words' "
+                                       "count pass (csrc/layout_scan.cuh)"}},
+            "packs": packs, "first_packs": {k: v["pack_words"]
+                                            for k, v in first.items()}}
+
+
+# ------------------------------------------------ 16. the encoder's pack
+
+def pack_bytes(a) -> int:
+    """The bytes pack_words must move on its arguments `a` (as encode_shard
+    hands them): each input read once (18 a position: the chosen flag, the
+    byte, length and distance; the tables, header items and per-block
+    arrays), each output written once (the words, off_pos, the layout)."""
+    S, NB, nw = a[0].shape[0], a[0].shape[0] // WINDOW, a[14]
+    return (sum(t.numel() * t.element_size() for t in a[:13])
+            + 8 * (nw + S + 3 * NB + 2))
+
+
+def pack_phase(blk: dict, dev) -> dict:
+    """Phase 16: pack_words against its plain version, exactly (words,
+    total_bits, block_base, pad, token bits, off_pos), on every call of
+    phase 15 (every shard of phases 4 and 10, a fixed and a stored
+    encode) and on corpus.pack_case's shards; its layout against
+    block_layout's plain version on those encodes; the wrapper once under
+    sync debug mode "error"; its and its plain version's times at phase
+    4's first shard ("1mb") and phase 10's ("4mb"), each pass by the
+    profiler, beside the bound."""
+    from deflate_compression_tpu_torch import corpus
+    from deflate_compression_tpu_torch.ops import block_layout as BL
+    from deflate_compression_tpu_torch.ops import pack_words as PW
+    calls = list(blk["packs"])
+    calls += [(name, tuple(torch.from_numpy(x).to(dev)
+                           if isinstance(x, np.ndarray) else x
+                           for x in corpus.pack_case(name)))
+              for name in corpus.PACK_CASES]
+    err = lay_err = 0
+    for label, a in calls:
+        got = PW.pack_words(*a)
+        err = max(err, same(got, PW.pack_words_ref(*a),
+                            f"pack_words, {label}"))
+    for label, a in blk["packs"]:
+        got = PW.pack_words(*a)
+        want = BL.block_layout_ref(*corpus.layout_inputs(a))
+        lay_err = max(lay_err, same([got.block_base, got.pad], want[:2],
+                                    f"pack_words' layout scan, {label}"))
+    a1 = blk["first_packs"]["1mb"]
+    got = no_sync(lambda: PW.pack_words(*a1))
+    same(got, PW.pack_words_ref(*a1), "pack_words under sync debug mode")
+    times, shown = {}, []
+    for size, a in blk["first_packs"].items():
+        n_bytes = pack_bytes(a)
+        t = times[size] = timings("pack_", lambda: PW.pack_words(*a),
+                                  lambda: PW.pack_words_ref(*a), 20, 5,
+                                  n_bytes, reps=5, plain_n=0,
+                                  expect=PACK_PASSES)
+        t["count_ms"], t["write_ms"] = (t["by_kernel"].get(k)
+                                        for k in PACK_PASSES)
+        passes = " and ".join(
+            f"{name} pass " + ("not measured (the profiler kept no event "
+                               "of it)" if ms is None else f"{ms:.4f} ms")
+            for name, ms in zip(("count", "write"),
+                                (t["count_ms"], t["write_ms"])))
+        shown.append(
+            f"{size} shard 0 ({a[0].shape[0]} positions, "
+            f"{a[0].shape[0] // WINDOW} tiles, {n_bytes} bytes): two "
+            f"launches, {passes} by the profiler; {show(t)}")
+    print(f"phase 16 pack_words: tolerance 0 (exact); words, total_bits, "
+          f"block_base, pad, token bits and off_pos == the plain version "
+          f"on {len(calls)} calls (every shard of phases 4 and 10, a fixed "
+          f"and a stored 2 MB encode, {len(corpus.PACK_CASES)} synthetic "
+          f"shards), max abs err {err}; the count pass's layout == "
+          f"block_layout's plain version on {len(blk['packs'])} encodes "
+          f"(max abs err {lay_err}); the wrapper ran under sync debug mode "
+          f"\"error\"; {'; '.join(shown)}; no single PyTorch call computes "
+          f"the function")
+    torch.cuda.synchronize()
+    return {"max_abs_err": err, "layout_err": lay_err, "times": times,
+            "calls": len(calls)}
 
 
 if __name__ == "__main__":

@@ -359,20 +359,94 @@ def layout_case(name: str) -> tuple:
 LAYOUT_CASES = ["nb32", "nb128", "nb1", "nb5000"]
 
 
+def pack_case(name: str) -> tuple:
+    """The arguments of ops/pack_words.py::pack_words for one synthetic
+    shard, as numpy arrays and then final and num_words (the shard's
+    out_words):
+    nbN        N tiles, tokens of random lengths (literals, matches of 3 to
+               258 bytes at distances up to 32768), random block splits,
+               every type (stored blocks one tile), random code lengths of
+               1-15 bits and, in dynamic blocks, header widths (some of
+               33-40 bits; values with bits past their widths), the valid
+               bytes ending
+               inside the last tile, not final;
+    nbN_final  the same, final, every tile valid."""
+    base, final = (name[:-6], True) if name.endswith("_final") else (
+        name, False)
+    NB = int(base[2:])
+    S = NB * C.WINDOW_SIZE
+    rng = np.random.default_rng(sum(map(ord, name)))
+    valid = S if final else S - int(rng.integers(1, C.WINDOW_SIZE))
+    data = rng.integers(0, 256, S).astype(np.uint8)
+    lens = np.where(rng.random(S) < 0.6, 1, rng.integers(3, 259, S))
+    starts = np.cumsum(lens) - lens
+    starts = starts[starts < valid]
+    chosen = np.zeros(S, bool)
+    chosen[starts] = True
+    length = np.zeros(S, np.int64)
+    dist = np.zeros(S, np.int64)
+    lm = lens[:len(starts)]
+    length[starts] = np.where(lm >= 3, lm, 0)
+    dist[starts] = np.where(lm >= 3, rng.integers(1, 32769, len(starts)), 0)
+    split = rng.random(NB) < 0.5
+    split[0] = True
+    blk = np.cumsum(split) - 1
+    n_blocks = int(blk[-1]) + 1
+    last = int(blk[(valid - 1) // C.WINDOW_SIZE])        # last emitted
+    start = np.full(NB, NB - 1, np.int64)
+    start[:n_blocks] = np.flatnonzero(split)
+    tiles = np.diff(np.append(start[:n_blocks], NB))
+    btype = rng.integers(0, 3, NB)
+    btype[:n_blocks] = np.where(tiles[:n_blocks] > 1,
+                                np.maximum(btype[:n_blocks], 1),
+                                btype[:n_blocks])
+    emitted = np.arange(NB) <= last
+    huff = emitted & (btype != 0)
+    stored = emitted & (btype == 0)
+    blen = np.clip(valid - start * C.WINDOW_SIZE, 0, C.WINDOW_SIZE)
+    blen = np.where(np.arange(NB) < n_blocks, blen, 0)
+    lens_ll = rng.integers(1, 16, (NB, C.NUM_LITLEN + 1))
+    lens_d = rng.integers(1, 16, (NB, C.NUM_DIST + 1))
+    ll_tab = (rng.integers(0, 1 << 15, lens_ll.shape) & ((1 << lens_ll) - 1)
+              | lens_ll << 16)
+    d_tab = (rng.integers(0, 1 << 15, lens_d.shape) & ((1 << lens_d) - 1)
+             | lens_d << 16)
+    ll_tab[:, -1] = 0
+    d_tab[:, -1] = 0
+    hdr_lo = rng.integers(0, 1 << 32, (NB, 340))
+    hdr_nbs = rng.integers(0, 15, (NB, 340)) * (rng.random((NB, 340)) < 0.7)
+    hdr_nbs[:, 0] = 3
+    hdr_nbs[:, 1::97] = rng.integers(33, 41, (NB, len(range(1, 340, 97))))
+    hdr_nbs[btype != 2, 1:337] = 0             # a tree only if dynamic
+    hdr_nbs[:, 337] = 0
+    hdr_nbs[:, 338] = np.where(stored, 32, 0)
+    hdr_nbs[:, 339] = np.where(huff, ll_tab[:, 256] >> 16, 0)
+    hdr_nbs[~emitted] = 0
+    return (data, chosen, length, dist, blk.astype(np.int64), start, huff,
+            stored, blen.astype(np.int64), ll_tab.astype(np.int64),
+            d_tab.astype(np.int64), hdr_lo.astype(np.int64),
+            hdr_nbs.astype(np.int64), final,
+            (NB * (42 + 9 * C.WINDOW_SIZE) + 96) // 32)
+
+
+PACK_CASES = ["nb1", "nb1_final", "nb32", "nb32_final", "nb128",
+              "nb128_final"]
+
+
 def block_stage_inputs(x, valid_len: int, final: bool = True,
                        **options) -> dict:
     """The arguments encode_shard(x, valid_len, final, **options) hands
-    each op of its block stage, by row name ("block_plan", "huffman_codes
-    11-bit", "huffman_codes 7-bit", "block_layout"), each as (op, plain
-    version, args, kwargs). The encode runs once with format.deflate's
-    three names wrapped by recorders, restored after it."""
+    each op of its block stage and back end, by row name ("block_plan",
+    "huffman_codes 11-bit", "huffman_codes 7-bit", "pack_words"), each as
+    (op, plain version, args, kwargs). The encode runs once with
+    format.deflate's three names wrapped by recorders, restored after it."""
     from .format import deflate
-    from .ops import block_layout as BL
     from .ops import block_plan as BP
     from .ops import huffman_codes as HC
+    from .ops import pack_words as PW
     plain = {"block_plan": BP.block_plan_ref,
              "huffman_codes": HC.huffman_codes_ref,
-             "block_layout": BL.block_layout_ref}
+             "pack_words": PW.pack_words_ref}
     saved = {n: getattr(deflate, n) for n in plain}
     got = {}
 
@@ -390,3 +464,18 @@ def block_stage_inputs(x, valid_len: int, final: bool = True,
         for n, fn in saved.items():
             setattr(deflate, n, fn)
     return got
+
+
+def layout_inputs(pack_args) -> tuple:
+    """(rest int64[NB], stored bool[NB]) of the layout inside pack_words
+    on its arguments `pack_args` (as block_stage_inputs records them): each
+    block's header bits, token bits and stored bytes' bits, and its stored
+    flag. The token bits come from the plain version, on the arguments'
+    device."""
+    import torch
+
+    from .ops import pack_words as PW
+    T_b = PW.pack_words_ref(*pack_args).token_bits
+    stored, blen, hdr_nbs = pack_args[7], pack_args[8], pack_args[12]
+    rest = hdr_nbs.sum(1) + T_b + torch.where(stored, 8 * blen, 0)
+    return rest.contiguous(), stored.contiguous()

@@ -10,22 +10,26 @@
 //   p      += rest[b] + pad[b]
 // and p_end = p after the last block.
 //
-// What bounds it on this card: the chain of NB dependent steps. The bytes
-// are 9 NB in and 16 NB + 8 out (2.1 KB at NB = 128).
+// What bounds it on this card: the launch and the chain of dependent
+// steps. The bytes are 9 NB in and 16 NB + 8 out (2.1 KB at NB = 128).
 //
-// One CTA of 256 threads: the threads stage a chunk of up to 2,048 blocks'
-// rest and stored flags in shared memory with coalesced loads, thread 0
-// walks the chunk (an add and a mask a step, p in a register), and the
-// threads store the chunk's bases and pads; chunks follow in turn.
+// The encoder runs the same scan inside csrc/pack_words.cu's count pass;
+// this standalone launch is the op `ops/block_layout.py::block_layout`.
+// One CTA of min(256, NB rounded up to 32) threads runs the log-depth
+// scan of layout_scan.cuh: a block's pad depends on p only through p mod
+// 8, so each block is a map of p mod 8 and the maps compose; the chain is
+// ceil(log2(NB)) shuffle levels a chunk of 256 blocks instead of a walk
+// of NB dependent steps by one thread.
 //
 // Domain: 1 <= NB <= 2^31 - 1; the sums fit int64.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "layout_scan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 2048;
 constexpr int kMaxDevices = 64;
 
 __global__ void __launch_bounds__(kThreads)
@@ -33,33 +37,18 @@ __global__ void __launch_bounds__(kThreads)
                         const bool* __restrict__ stored, int64_t nb,
                         int64_t* __restrict__ base, int64_t* __restrict__ pad,
                         int64_t* __restrict__ p_end) {
-  __shared__ int64_t s_rest[kChunk];      // rest, then the bases
-  __shared__ int8_t s_pad[kChunk];        // stored flags, then the pads
-  int64_t p = 0;                          // thread 0's running offset
-  for (int64_t c0 = 0; c0 < nb; c0 += kChunk) {
-    const int len = static_cast<int>(nb - c0 < kChunk ? nb - c0 : kChunk);
-    for (int i = threadIdx.x; i < len; i += kThreads) {
-      s_rest[i] = rest[c0 + i];
-      s_pad[i] = stored[c0 + i];
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < len; ++i) {
-        const int pd = s_pad[i] ? static_cast<int>((8 - ((p + 3) & 7)) & 7)
-                                : 0;
-        const int64_t r = s_rest[i];
-        s_rest[i] = p;
-        s_pad[i] = static_cast<int8_t>(pd);
-        p += r + pd;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < len; i += kThreads) {
-      base[c0 + i] = s_rest[i];
-      pad[c0 + i] = s_pad[i];
-    }
-    __syncthreads();
-  }
+  __shared__ layout::Shared sh;
+  const int64_t p = layout::scan(
+      nb,
+      [&](int64_t b, int64_t& r, bool& s) {
+        r = rest[b];
+        s = stored[b];
+      },
+      [&](int64_t b, int64_t bs, int pd) {
+        base[b] = bs;
+        pad[b] = pd;
+      },
+      sh);
   if (threadIdx.x == 0) *p_end = p;
 }
 
@@ -78,7 +67,9 @@ extern "C" int block_layout_launch(const void* rest, const void* stored,
   cudaError_t e = cudaGetDevice(&cur);
   if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
   if (e == cudaSuccess) {
-    block_layout_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int threads = static_cast<int>(
+        nb >= kThreads ? kThreads : (nb + 31) / 32 * 32);
+    block_layout_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int64_t*>(rest), static_cast<const bool*>(stored),
         nb, static_cast<int64_t*>(base), static_cast<int64_t*>(pad),
         static_cast<int64_t*>(p_end));

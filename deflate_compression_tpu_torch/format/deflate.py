@@ -1,21 +1,23 @@
 """DEFLATE shard encoder: tokens -> RFC 1951 bitstream (counterpart of
 deflate_compression_tpu/format/deflate.py).
 
-One shard (S bytes, S % 32768 == 0) is tokenized once, cut into
-NB = S / 32768 tiles, planned into coding blocks (core/cost.py), given
-per-block length-limited Huffman tables (ops/huffman_codes.py), laid out
-block after block (ops/block_layout.py: stored-block byte alignment) and
-serialized as items (value, nbits, bit offset) packed into LSB-first words
-(core/bits.py). The two sequential pieces, the cost DP and the layout, are
-kernels on the card. A non-final shard ends with an empty stored block, so
-shard substreams concatenate.
+One shard (S bytes, S % 32768 == 0) is tokenized once (core/lz77.py),
+cut into NB = S / 32768 tiles, planned into coding blocks (core/cost.py:
+ops/block_plan.py), given per-block length-limited Huffman tables
+(ops/huffman_codes.py), and its header items built here. ops/pack_words.py
+then serializes it: the token items, the block layout (stored-block byte
+alignment, a log-depth scan), the item offsets and the stored payloads,
+packed into LSB-first u32 words, in two launches of one kernel on the
+card. A non-final shard ends with an empty stored block, so shard
+substreams concatenate.
 
 The output is bit-identical to the JAX encoder's for the same input and
-options, but where two candidates of the block plan's float32 DP lie
-within a float32 ulp of each other: there torch's and XLA's rounding can
-pick different splits (core/cost.py; ROADMAP, queue 3). Each such output
-is still a valid stream of the same input. u32 values are carried in
-int64 tensors (core/u32.py).
+options as the JAX codec runs it, under jax.jit (`encode_shard_jit`),
+the block split included. Called eagerly, the JAX block plan's float32
+DP can round a near-tie the other way (`corpus.block_plan_case
+("m32_short")`, a margin of 0.375 bits): a property of the eager call, not
+of the port, so the tests hold the port against the jitted function. u32
+values are carried in int64 tensors (core/u32.py).
 """
 from __future__ import annotations
 
@@ -28,20 +30,14 @@ from ..core import bits as bits_mod
 from ..core import huffman, lz77
 from ..core.cost import block_plan
 from ..core import scans
-from ..core.u32 import low_mask, shl32
 from ..device import pick_device
-from ..ops.block_layout import block_layout
 from ..ops.huffman_codes import huffman_codes
+from ..ops.pack_words import (BLOCK, H_ITEMS as _H_ITEMS, RLE_SLOTS as
+                              _RLE_SLOTS, SLOT_EOB as _SLOT_EOB,
+                              SLOT_LENNLEN as _SLOT_LENNLEN, dist_fields,
+                              len_fields, pack_words)
 from . import constants as C
 
-BLOCK = C.WINDOW_SIZE            # 32768 input bytes per tile
-_RLE_SLOTS = 316                 # max hlit (286) + max hdist (30)
-# header item slots per block: 3-bit hdr | 14-bit dynhdr | 19 clen | RLE
-# | stored pad | LEN/NLEN | EOB
-_H_ITEMS = 1 + 1 + 19 + _RLE_SLOTS + 1 + 1 + 1
-_SLOT_PAD = 337
-_SLOT_LENNLEN = 338
-_SLOT_EOB = _H_ITEMS - 1
 TREE_LIMIT = 11                  # emitted Huffman code-length cap
 MAX_MERGE = 8                    # most tiles merged into one coding block
 
@@ -66,7 +62,7 @@ def _consts(dev: torch.device) -> dict:
     tabs = {"len_extra": C.LENGTH_EXTRA, "dist_extra": C.DIST_EXTRA,
             "fixed_ll_len": _FIXED_LL_LEN, "fixed_ll_rev": _FIXED_LL_REV,
             "fixed_d_len": _FIXED_D_LEN, "fixed_d_rev": _FIXED_D_REV,
-            "clen_order": C.CLEN_ORDER, "tail_vals": [0, 0, 0xFFFF0000]}
+            "clen_order": C.CLEN_ORDER}
     return {k: torch.as_tensor(np.asarray(v, np.int64), device=dev)
             for k, v in tabs.items()}
 
@@ -75,37 +71,6 @@ def out_words(shard_size: int) -> int:
     """Worst-case output capacity (u32 words) for a shard."""
     nb = shard_size // BLOCK
     return (nb * (42 + 9 * BLOCK) + 96) // 32
-
-
-def _ilog2(v: torch.Tensor) -> torch.Tensor:
-    """floor(log2(v)) for 1 <= v < 2^24: the f32 biased exponent."""
-    return (v.float().view(torch.int32).long() >> 23) - 127
-
-
-def _len_fields(length: torch.Tensor):
-    """Match length (3..258) -> (code 257..285, extra value, extra bits),
-    RFC 1951 §3.2.5 Table 1 in closed form. Callers mask literals."""
-    m = (length - C.MIN_MATCH).clamp(0, 255)
-    k = _ilog2(m.clamp(min=1))
-    eb = (k - 2).clamp(min=0)
-    code_hi = 257 + 4 * (k - 1) + ((m - (torch.ones_like(k) << k)) >> eb)
-    code = torch.where(m < 8, 257 + m, code_hi)
-    code = torch.where(m >= 255, 285, code)          # length 258 is exact
-    eb = torch.where((m < 8) | (m >= 255), 0, eb)
-    ev = m & ((torch.ones_like(eb) << eb) - 1)
-    return code, ev, eb
-
-
-def _dist_fields(dist: torch.Tensor):
-    """Distance (1..32768) -> (code 0..29, extra value, extra bits), RFC
-    1951 §3.2.5 Table 2 in closed form."""
-    v = dist.clamp(min=1) - 1
-    k = _ilog2(v.clamp(min=1))
-    code_hi = 2 * k + (v >> (k - 1).clamp(min=0)) - 2
-    code = torch.where(v < 4, v, code_hi)
-    eb = torch.where(v < 4, 0, k - 1)
-    ev = v & ((torch.ones_like(eb) << eb) - 1)
-    return code, ev, eb
 
 
 def _force_two_codes(freqs: torch.Tensor) -> torch.Tensor:
@@ -234,23 +199,16 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     chosen, length, dist = tok["chosen"], tok["length"], tok["dist"]
     is_match = chosen & (length >= C.MIN_MATCH)
 
-    lcode, lev, leb = _len_fields(length)
-    ll_sym_pos = torch.where(is_match, lcode, data.long())
-    ll_ev_pos = torch.where(is_match, lev, 0)
-    ll_eb_pos = torch.where(is_match, leb, 0)
-    dcode, dev_, deb_ = _dist_fields(dist)
-    d_sym_pos = torch.where(is_match, dcode, 0)
-    d_ev_pos = torch.where(is_match, dev_, 0)
-    d_eb_pos = torch.where(is_match, deb_, 0)
+    # each position's symbols; masked positions map to the dropped class
+    ll_sym_t = torch.where(chosen, torch.where(
+        is_match, len_fields(length)[0], data.long()), C.NUM_LITLEN)
+    d_sym_t = torch.where(is_match, dist_fields(dist)[0], C.NUM_DIST)
     mark("token fields")
 
     # --------------------------------------------------- block planning
-    # per-tile histograms (the tile_histogram kernel); masked positions
-    # map to the dropped class
-    ll_sym_t = torch.where(chosen, ll_sym_pos, C.NUM_LITLEN)
+    # per-tile histograms (the tile_histogram kernel)
     ll_freq_micro = huffman.histogram_rows(ll_sym_t.view(NB, BLOCK),
                                            C.NUM_LITLEN)
-    d_sym_t = torch.where(is_match, d_sym_pos, C.NUM_DIST)
     d_freq_micro = huffman.histogram_rows(d_sym_t.view(NB, BLOCK),
                                           C.NUM_DIST)
     mark("tile histograms")
@@ -371,41 +329,10 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     d_tab = torch.cat([torch.where(use_dyn, d_rev_dyn, K["fixed_d_rev"])
                        | (d_len_eff << 16), zcol], 1)
 
-    # ------------------------------------------------------- token items
-    # per-position table lookup from its tile's block table (a gather; the
-    # JAX package uses a one-hot matmul here only to dodge TPU gathers)
-    tabv_ll = torch.gather(ll_tab[blk_id_micro], 1,
-                           ll_sym_t.view(NB, BLOCK)).view(S)
-    tabv_d = torch.gather(d_tab[blk_id_micro], 1,
-                          d_sym_t.view(NB, BLOCK)).view(S)
-
     huff_b = (btype != C.BTYPE_STORED) & b_emitted
-    huff_pos = huff_b[blk_id_micro].repeat_interleave(BLOCK)
-
-    tk_ll_bits = tabv_ll >> 16
-    tk_ll_code = tabv_ll & 0xFFFF
-    tk_d_bits = tabv_d >> 16
-    tk_d_code = tabv_d & 0xFFFF
-
-    # one <= 48-bit item per token: litlen code+extra in the low bits,
-    # dist code+extra above
-    it_ll_val = tk_ll_code | (ll_ev_pos << tk_ll_bits)
-    it_ll_nb = torch.where(huff_pos, tk_ll_bits + ll_eb_pos, 0)
-    it_d_val = tk_d_code | (d_ev_pos << tk_d_bits)
-    it_d_nb = torch.where(huff_pos & is_match, tk_d_bits + d_eb_pos, 0)
-
-    lo_pos = it_ll_val | shl32(it_d_val, it_ll_nb)
-    hi_pos = it_d_val >> (32 - it_ll_nb)
-    nbs_pos = it_ll_nb + it_d_nb
-
-    nbs_chosen = torch.where(chosen, nbs_pos, 0)
-    micro_bits = nbs_chosen.view(NB, BLOCK).sum(1)
-    T_b = torch.zeros(NB, **i64).index_add_(0, blk_id_micro, micro_bits)
-    P_excl = torch.cumsum(nbs_chosen, 0) - nbs_chosen
-
     eob_tab = ll_tab[:, C.EOB]
     eob_nbs = torch.where(huff_b, eob_tab >> 16, 0)
-    mark("tables and items")
+    mark("code tables")
 
     # ------------------------------------------------------ header items
     hdr_lo = torch.zeros((NB, _H_ITEMS), **i64)
@@ -441,90 +368,19 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     hdr_nbs[:, _SLOT_EOB] = eob_nbs
     mark("header items")
 
-    # ------------------------------------------- block layout (NB steps)
+    # -------------------- token items, layout, offsets, words (2 launches)
+    # hdr_nbs's pad slot is 0 here: pack_words fills it in its own rows
+    words, total_bits, block_base, pad_b, T_b, off_pos = pack_words(
+        data, chosen, length, dist, blk_id_micro, start_micro_c, huff_b,
+        sto_emit, blen, ll_tab, d_tab, hdr_lo, hdr_nbs, final, OUT_WORDS)
     hdr_fixed = hdr_nbs.sum(1)              # without pad, with the EOB
-    pay_bits_b = torch.where(sto_emit, 8 * blen, 0)
-    block_base, pad_b, p_end = block_layout(hdr_fixed + T_b + pay_bits_b,
-                                            sto_emit)
-    hdr_nbs[:, _SLOT_PAD] = pad_b
-    mark("block_layout")
-
-    # tail: sync flush when not final (empty stored block, byte aligned)
-    sf_pad = (8 - ((p_end + 3) % 8)) % 8
-    tail_vals = K["tail_vals"]
-    tail_offs = torch.stack([p_end, p_end + 3, p_end + 3 + sf_pad])
-    if final:
-        tail_nbs = torch.zeros(3, **i64)
-        total_bits = p_end
-    else:
-        tail_nbs = torch.stack([torch.full_like(sf_pad, 3), sf_pad,
-                                torch.full_like(sf_pad, 32)])
-        total_bits = p_end + 3 + sf_pad + 32
-
-    # ---------------------------------------------------- item offsets
-    hdr_offs = block_base.unsqueeze(1) + torch.cumsum(hdr_nbs, 1) - hdr_nbs
-    token_base = block_base + (hdr_fixed - eob_nbs) + pad_b
-    hdr_offs[:, _SLOT_EOB] = token_base + T_b
-    # position offsets: the global exclusive cumsum rebased per block
-    rebase_b = token_base - P_excl[start_pos_b]
-    off_pos = rebase_b[blk_id_micro].repeat_interleave(BLOCK) + P_excl
-    mark("item offsets")
-
-    n_h = NB * _H_ITEMS + 3
-    words_h = bits_mod.pack_items64_to_words(
-        torch.cat([hdr_lo.reshape(-1), tail_vals]),
-        torch.zeros(n_h, **i64),
-        torch.cat([hdr_nbs.reshape(-1), tail_nbs]),
-        torch.cat([hdr_offs.reshape(-1), tail_offs]),
-        OUT_WORDS)
-    mark("pack64 (header items)")
-
-    # pair adjacent positions into one <= 96-bit item: inside a block the
-    # position offsets are gapless and pairs never straddle a block
-    lo_m = lo_pos & low_mask(nbs_chosen)
-    hi_m = hi_pos & low_mask(nbs_chosen - 32)
-    l1, h1, n1 = lo_m[0::2], hi_m[0::2], nbs_chosen[0::2]
-    l2, h2, n2 = lo_m[1::2], hi_m[1::2], nbs_chosen[1::2]
-    hiq = n1 >= 32                    # the second item starts in word 1
-    rsh = n1 & 31
-    a0 = shl32(l2, rsh)
-    a1 = shl32(h2, rsh) | (l2 >> (32 - rsh))
-    a2 = h2 >> (32 - rsh)
-    c0 = l1 | torch.where(hiq, 0, a0)
-    c1 = h1 | torch.where(hiq, a0, a1)
-    c2 = torch.where(hiq, a1, a2)     # bits >= 96 provably vanish
-    words_t = bits_mod.pack_items96_to_words(c0, c1, c2, n1 + n2,
-                                             off_pos[0::2], OUT_WORDS)
-    words = words_h | words_t
-    mark("pack96 (token pairs)")
-
-    # stored payloads: per emitted stored block, add its tile's bytes
-    # (masked to blen, shifted to the byte-aligned start) into the words
-    PWs = BLOCK // 4
-    q = data.long().view(S // 4, 4)
-    tile_words = (q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16)
-                  | (q[:, 3] << 24)).view(NB, PWs)
-    byte0 = (block_base + 3 + pad_b + 32) >> 3
-    w0 = (byte0 >> 2).clamp(0, OUT_WORDS - 1)
-    sh = ((byte0 & 3) << 3).unsqueeze(1)          # 0/8/16/24
-    nby = 8 * (blen.unsqueeze(1)
-               - 4 * torch.arange(PWs, device=dev)).clamp(0, 4)
-    sv = tile_words[start_micro_c] & low_mask(nby)
-    prev = torch.cat([torch.zeros((NB, 1), **i64), sv[:, :-1]], 1)
-    shifted = shl32(sv, sh) | (prev >> (32 - sh))
-    carry = sv[:, -1:] >> (32 - sh)
-    win = torch.where(sto_emit.unsqueeze(1),
-                      torch.cat([shifted, carry], 1), 0)
-    widx = w0.unsqueeze(1) + torch.arange(PWs + 1, device=dev)
-    buf = torch.cat([words, torch.zeros(PWs + 1, **i64)])
-    buf.index_add_(0, widx.reshape(-1), win.reshape(-1))
-    words = buf[:OUT_WORDS]
-    mark("stored payloads")
+    mark("pack_words")
 
     # ---------------------------------------- sub-block decode entries
     # every `stride`-th Huffman token plus each block's first token, the
     # stride chosen so the entries fit NSUB lanes
     NSUB = S // 64
+    huff_pos = huff_b[blk_id_micro].repeat_interleave(BLOCK)
     tok_h = chosen & huff_pos
     th = tok_h.long()
     cs = torch.cumsum(th, 0) - th

@@ -42,20 +42,6 @@ def _bind():
     return lib.block_plan_launch, cuda_build.raw_stream()
 
 
-_tickets: dict = {}
-
-
-def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
-    """The kernel's CTA counter for this stream: zeroed once, and left at
-    0 by every launch, so launches on one stream share it and launches on
-    two streams never do."""
-    t = _tickets.get((dev.index, stream))
-    if t is None:
-        t = _tickets[dev.index, stream] = torch.zeros(
-            1, dtype=torch.int32, device=dev)
-    return t
-
-
 def _check(ll, dd, tile_bytes, n_valid: int, max_merge: int) -> None:
     args = {"ll_freq_micro": ll, "d_freq_micro": dd, "tile_bytes": tile_bytes}
     for name, x in args.items():
@@ -166,7 +152,7 @@ def block_plan(ll_freq_micro: torch.Tensor, d_freq_micro: torch.Tensor,
     rc = launch(ll_freq_micro.data_ptr(), d_freq_micro.data_ptr(),
                 tile_bytes.data_ptr(), M, max_merge, n_valid,
                 scratch.data_ptr(), split.data_ptr(), n_blocks.data_ptr(),
-                _ticket(dev, st).data_ptr(), dev.index, st)
+                cuda_build.ticket(dev, st).data_ptr(), dev.index, st)
     if rc != 0:
         raise RuntimeError(f"block_plan launch failed: cudaError {rc}")
     block_plan.launches += 1

@@ -2,8 +2,9 @@
 
 Each source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface, at first use, into `build/` beside this package. The
-library's name carries a hash of the source, so an edited source is never
-served from a stale build. A `Build` launches nvcc and returns at once, so
+library's name carries a hash of the source and of the headers it
+includes from its own folder (`#include "name.cuh"`), so an edited source
+or header is never served from a stale build. A `Build` launches nvcc and returns at once, so
 several sources can compile together; `load()` builds (or reuses) a
 library and binds the named C functions through ctypes. The kernels'
 wrappers pass `raw_stream()`'s handle, so each launch goes on PyTorch's
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,9 +39,22 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
 def lib_path(source: Path) -> Path:
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    h = hashlib.sha256()
+    seen, todo = set(), [source]
+    while todo:                       # the source, then its local headers
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(text)
+        todo += [path.parent / m.decode() for m in
+                 _LOCAL_INCLUDE.findall(text)]
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
 class Build:
@@ -84,6 +99,22 @@ def raw_stream():
         def raw(i):
             return torch.cuda.current_stream(i).cuda_stream
     return raw
+
+
+_tickets: dict = {}
+
+
+def ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """A CTA counter (one uint32 in an int32 tensor) for kernels on this
+    stream that let the CTA finishing last go on (`atomicInc`, wrapping to
+    0): zeroed once and left at 0 by every launch, so launches on one
+    stream, which run in turn, share it and launches on two streams never
+    do."""
+    t = _tickets.get((dev.index, stream))
+    if t is None:
+        t = _tickets[dev.index, stream] = torch.zeros(
+            1, dtype=torch.int32, device=dev)
+    return t
 
 
 def load(source: Path, functions: dict) -> ctypes.CDLL:

@@ -77,27 +77,39 @@ def device_ms(fn, n: int):
         spin *= 4
 
 
-def profiled_ms(fn, n: int) -> dict:
-    """Device milliseconds per call by kernel name, summed over a
-    torch.profiler window of n calls after a warm-up (empty only if three
-    windows in a row recorded no device event)."""
+def profiled_ms(fn, n: int, expect=()) -> dict:
+    """Device milliseconds per call by kernel name over a torch.profiler
+    window of n calls after a warm-up: each name's mean time per launch
+    times its launches per call. A window lost device events where it
+    holds none, or where a kernel named by a substring of `expect` is
+    missing or launched a number of times that is not a multiple of n (fn
+    launches it the same number of times on every call): it is taken
+    again, up to three times, over twice the calls each time, and the
+    window that kept the most events is used. Empty only if no window
+    recorded a device event."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    by = {}
-    # a short window now and then comes back with no device event at all:
-    # take it again, up to three times, over twice the calls each time
+    best, best_n = {}, n
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+        seen = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                by[e.name] = (by.get(e.name, 0.0)
-                              + e.self_device_time_total / 1e3 / n)
-        if by:
+                ms, k = seen.get(e.name, (0.0, 0))
+                seen[e.name] = (ms + e.self_device_time_total / 1e3, k + 1)
+        if sum(k for _, k in seen.values()) > sum(
+                k for _, k in best.values()):
+            best, best_n = seen, n
+        held = [k for name, (_, k) in seen.items()
+                if any(w in name for w in expect)]
+        if seen and all(k % n == 0 for k in held) and all(
+                any(w in name for name in seen) for w in expect):
             break
         n *= 2
-    return by
+    return {name: ms / k * max(1, round(k / best_n))
+            for name, (ms, k) in best.items()}

@@ -5,15 +5,20 @@
 
 Prints host-clock times (best of 3 after a warm-up, each ending in
 torch.cuda.synchronize()):
-  * the whole encode_shard of the corpus's first shard;
+  * the whole encode_shard of the corpus's first shard, with the device
+    memory it allocated at its peak;
   * each of its stages in that encode (`encode_shard`'s `_marks` seam
     synchronizes as each stage ends, so a stage's time is its host
     dispatch and device work with nothing overlapped; the stages sum to
-    more than the whole);
-  * the block stage's three ops (block_plan, huffman_codes at 11 and 7
-    bits, block_layout) on the inputs that encode handed them, each beside
-    its plain version on the same inputs on the card, and block_plan's DP
-    loop in clock64 cycles a step;
+    more than the whole): tokenize, token fields, tile histograms,
+    block_plan, block histograms, huffman_codes 11-bit, tree RLE, clen
+    histogram, huffman_codes 7-bit, bit costs, code tables, header items,
+    pack_words (the token items, layout, offsets, words and stored
+    payloads: the kernel's two launches), sub-entry index;
+  * the block stage's and back end's ops (block_plan, huffman_codes at 11
+    and 7 bits, pack_words) on the inputs that encode handed them, each
+    beside its plain version on the same inputs on the card, and
+    block_plan's DP loop in clock64 cycles a step;
   * some stages run alone on inputs of the main-path shapes (tokenize is
     the find_matches and lz_parse kernels with the packed hand-off, timed
     alone beside their int64 calls; their plain versions, which the card
@@ -96,7 +101,11 @@ def main() -> None:
                 f", peak {peak:9.1f} MiB above the inputs")
         print(f"{name:28s} {ms:9.3f} ms (host clock, best of 3){tail}")
 
-    row("encode_shard", _timed(lambda: encode_shard(x, shard, True)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    row("encode_shard", _timed(lambda: encode_shard(x, shard, True)),
+        (torch.cuda.max_memory_allocated() - base) / 2**20)
     if "_marks" in inspect.signature(encode_shard).parameters:
         for name, ms in stage_times(x, shard).items():
             row(f"  stage: {name}", ms)

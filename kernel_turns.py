@@ -37,21 +37,28 @@ ops/timing.py` (loaded by path, so every tree is timed alike):
     behind a spin kernel) and profiler ms by kernel name; the gather
     rounds resolve_bytes ran where the tree reports them, the rounds its
     plain version runs, and the rounds bound;
-  * the encoder's block stage at a 1 MB and a 4 MB shard of
+  * the encoder's block stage and back end at a 1 MB and a 4 MB shard of
     `corpus.build_corpus`: encode_shard's host ms (median of 10 after a
-    warm-up, each ended by a synchronize); where the tree's encode_shard
-    has the `_marks` seam, its stages' host ms (`profile_encode.
-    stage_times`, best of 3); and where the tree has the block stage's
-    kernels, `block_plan`, `huffman_codes` (11 and 7 bits) and
-    `block_layout` on the inputs that encode handed them
-    (`corpus.block_stage_inputs`): device ms per call (20 calls
-    queued behind a spin kernel) and profiler ms by kernel name, a
-    SHA-256 of each result's bytes (and of block_plan's segment costs),
-    and the DP's time a step: its loop's clock64 cycles over the tiles
-    where the tree's kernel reports them (`stats["dp_cycles"]`, in ns at
-    the card's SM clock read by nvidia-smi after the run), else its DP
-    kernel's profiler time over the tiles. The first process says
-    whether every tree's hashes agree.
+    warm-up, each ended by a synchronize), the peak device memory one
+    encode_shard allocates above what was allocated before it, and a
+    SHA-256 of its words, total_bits and stats; where the tree's
+    encode_shard has the `_marks` seam, its stages' host ms
+    (`profile_encode.stage_times`, best of 3: a tree before the bit-pack
+    kernel has "tables and items", "block_layout", "item offsets",
+    "pack64", "pack96" and "stored payloads" where a tree with it has
+    "code tables" and "pack_words"); and where the tree has them, the
+    ops that encode handed its block stage and back end
+    (`corpus.block_stage_inputs`: `block_plan`, `huffman_codes` at 11
+    and 7 bits, and `block_layout` or `pack_words`): device ms per call
+    (20 calls queued behind a spin kernel), profiler ms by kernel name
+    (for pack_words also its plain version's, the torch code of the
+    trees before it), a SHA-256 of each result's bytes (and of
+    block_plan's segment costs), and the DP's time a step: its loop's
+    clock64 cycles over the tiles where the tree's kernel reports them
+    (`stats["dp_cycles"]`, in ns at the card's SM clock read by
+    nvidia-smi after the run), else its DP kernel's profiler time over
+    the tiles. The first process says whether every tree's hashes agree
+    on the rows the trees share.
 
 With `--phases-only` a process measures the decoder's phase kernels
 alone, with `--block-stage-only` the block stage alone (for trees that
@@ -306,13 +313,27 @@ def block_stage_times(T, dev) -> dict:
                              ).to(dev)
         r = {"encode_shard_host_ms": host_ms(
             lambda: encode_shard(x, n, True))}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        enc = encode_shard(x, n, True)
+        torch.cuda.synchronize()
+        r["encode_peak_mib"] = (torch.cuda.max_memory_allocated()
+                                - base) / 2**20
+        r["encode"] = {"sha256": digest(
+            [enc["words"][:(int(enc["total_bits"]) + 31) // 32]]
+            + [v for k, v in sorted(enc.items()) if k != "words"])}
+        del enc
         if "_marks" in inspect.signature(encode_shard).parameters:
             r["stages_ms"] = PE.stage_times(x, n)
-        for name, (op, _, a, k) in getattr(
+        for name, (op, ref, a, k) in getattr(
                 corpus, "block_stage_inputs", lambda *_: {})(x, n).items():
             fn = lambda: op(*a, **k)  # noqa: E731
             r[name] = {"device_ms": T.device_ms(fn, 20)[0],
                        "prof": kernels_by_name(T, fn)}
+            if name == "pack_words":
+                r[name]["plain_prof_ms"] = sum(T.profiled_ms(
+                    lambda: ref(*a, **k), 5).values())
             st = {} if name == "block_plan" else None
             got = BP.block_plan(*a, **k, stats=st) if st is not None \
                 else fn()
@@ -434,9 +455,10 @@ def main(argv) -> int:
                for key, v in o.items() if key.endswith("sha256")}
               for row in rows if "block_stage" in row]
     if hashes:
-        same = all(h == hashes[0] for h in hashes)
-        print(f"block stage results and segment costs bit-identical across "
-              f"the trees: {same}", flush=True)
+        shared = set.intersection(*(set(h) for h in hashes))
+        same = all(h[k] == hashes[0][k] for h in hashes for k in shared)
+        print(f"results bit-identical across the trees on the rows they "
+              f"share ({sorted(shared)}): {same}", flush=True)
     if out_file is not None:
         out_file.parent.mkdir(parents=True, exist_ok=True)
         out_file.write_text(json.dumps(rows, indent=1))

@@ -22,6 +22,7 @@ from deflate_compression_tpu_torch.ops import decode_symbols as DS
 from deflate_compression_tpu_torch.ops import huffman_codes as HC
 from deflate_compression_tpu_torch.ops import histogram as H
 from deflate_compression_tpu_torch.ops import lut_gather as LG
+from deflate_compression_tpu_torch.ops import pack_words as PW
 from test_torch_lanes import lanes_case
 
 
@@ -107,10 +108,11 @@ def test_tile_histogram_kernel_cluster_sizes(cuda, rows, length):
 def test_encode_shard_cuda_matches_cpu(cuda, size, valid_len, final):
     x = torch.from_numpy(corpus.sample("mixed", size, seed=1))
     fns = (H.tile_histogram, FM.find_matches, LP.lz_parse,
-           BP.block_plan, HC.huffman_codes, BL.block_layout)
+           BP.block_plan, HC.huffman_codes, BL.block_layout, PW.pack_words)
     before = [f.launches for f in fns]
     g = td.encode_shard(x.to(cuda), valid_len, final)
-    assert [f.launches - n for f, n in zip(fns, before)] == [2, 1, 1, 1, 2, 1]
+    assert [f.launches - n for f, n in zip(fns, before)] == [2, 1, 1, 1, 2, 0,
+                                                             2]
     c = td.encode_shard(x, valid_len, final)
     nw = (int(c["total_bits"]) + 31) // 32
     assert torch.equal(g["words"][:nw].cpu(), c["words"][:nw])
@@ -1175,13 +1177,13 @@ def test_block_layout_kernel_matches_plain(cuda, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("btype,plans", [(0, 0), (1, 0), (2, 1)])
 def test_encode_shard_forced_btype_launches(cuda, btype, plans):
-    """Forced fixed or stored blocks skip the DP; the codes and the layout
-    run in every encode."""
+    """Forced fixed or stored blocks skip the DP; the codes and the pack
+    (whose count pass runs the layout) run in every encode."""
     x = torch.from_numpy(corpus.sample("mixed", 1 << 18, seed=2))
-    fns = (BP.block_plan, HC.huffman_codes, BL.block_layout)
+    fns = (BP.block_plan, HC.huffman_codes, BL.block_layout, PW.pack_words)
     before = [f.launches for f in fns]
     g = td.encode_shard(x.to(cuda), 250_000, True, force_btype=btype)
-    assert [f.launches - n for f, n in zip(fns, before)] == [plans, 2, 1]
+    assert [f.launches - n for f, n in zip(fns, before)] == [plans, 2, 0, 2]
     c = td.encode_shard(x, 250_000, True, force_btype=btype)
     for k in c:
         assert torch.equal(g[k].cpu(), c[k]), k
@@ -1209,3 +1211,120 @@ def test_block_stage_wrappers_do_not_synchronize(cuda):
                                                   tile_bytes)[0])
     assert torch.equal(codes.rev, HC.huffman_codes_ref(freqs, 11).rev)
     assert torch.equal(lay[0], BL.block_layout_ref(rest, stored)[0])
+
+
+# ------------------------------------------------------------ the bit-pack
+
+def _same_pack(a, final, nw):
+    """pack_words on the card against its plain version on the same
+    arguments: every field exactly, and two launches."""
+    before = PW.pack_words.launches
+    got = PW.pack_words(*a, final, nw)
+    want = PW.pack_words_ref(*a, final, nw)
+    torch.cuda.synchronize()
+    assert PW.pack_words.launches == before + 2
+    for field in want._fields:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", corpus.PACK_CASES)
+def test_pack_words_kernel_matches_plain_on_synthetic_shards(cuda, name):
+    *args, final, nw = corpus.pack_case(name)
+    _same_pack([torch.from_numpy(x).to(cuda) for x in args], final, nw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,size,valid_len,final,btype", [
+    ("mixed", 1 << 20, 1 << 20, True, None),
+    ("mixed", 1 << 20, 700_001, False, None),
+    ("text", 4 << 20, (4 << 20) - 99, False, None),
+    ("random", 1 << 18, 1 << 18, False, None),
+    ("text", 1 << 18, 200_000, True, 0),
+    ("mixed", 1 << 18, 1 << 18, False, 1),
+    ("text", 32768, 1, True, None)])
+def test_pack_words_kernel_matches_plain_on_encoder_shards(
+        cuda, kind, size, valid_len, final, btype):
+    x = torch.from_numpy(corpus.sample(kind, size, seed=5)).to(cuda)
+    kw = {} if btype is None else {"force_btype": btype}
+    _, _, a, _ = corpus.block_stage_inputs(x, valid_len, final,
+                                           **kw)["pack_words"]
+    got = _same_pack(a[:13], a[13], a[14])
+    rest, stored = corpus.layout_inputs(a)
+    lay = BL.block_layout(rest, stored)
+    assert torch.equal(lay[0], got.block_base)
+    assert torch.equal(lay[1], got.pad)
+
+
+@pytest.mark.cuda
+def test_pack_words_kernel_unaligned_inputs(cuda):
+    """Inputs that do not start on a 16-byte edge are copied first."""
+    *args, final, nw = corpus.pack_case("nb32")
+    a = [torch.from_numpy(x).to(cuda) for x in args]
+    for i in range(4):
+        pad = torch.zeros(a[i].shape[0] + 3, dtype=a[i].dtype, device=cuda)
+        pad[3:] = a[i]
+        a[i] = pad[3:]
+        assert a[i].data_ptr() % 16
+    _same_pack(a, final, nw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw_cut", [1, 5000, 0])
+def test_pack_words_kernel_drops_bits_past_num_words(cuda, nw_cut):
+    """With fewer words than the stream needs, both drop what lies past
+    them (nw_cut words short; 0: the exact count)."""
+    *args, final, _ = corpus.pack_case("nb32_final")
+    a = [torch.from_numpy(x).to(cuda) for x in args]
+    total = int(PW.pack_words_ref(*a, final, 1 << 22).total_bits)
+    _same_pack(a, final, max(-(-total // 32) - nw_cut, 1))
+
+
+@pytest.mark.cuda
+def test_pack_words_does_not_synchronize(cuda):
+    *args, final, nw = corpus.pack_case("nb128")
+    a = [torch.from_numpy(x).to(cuda) for x in args]
+    PW.pack_words(*a, final, nw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = PW.pack_words(*a, final, nw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(got.words, PW.pack_words_ref(*a, final, nw).words)
+
+
+@pytest.mark.cuda
+def test_pack_words_raises_when_the_library_cannot_load(cuda, monkeypatch):
+    *args, final, nw = corpus.pack_case("nb1")
+    a = [torch.from_numpy(x).to(cuda) for x in args]
+
+    def boom(*a_, **k):
+        raise RuntimeError("nvcc failed (test)")
+    PW._bind.cache_clear()
+    monkeypatch.setattr(cuda_build, "load", boom)
+    monkeypatch.setattr(PW, "pack_words_ref", None)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            PW.pack_words(*a, final, nw)
+    finally:
+        PW._bind.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 31, 33, 256, 257, 2049, 5000])
+@pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
+def test_block_layout_kernel_block_counts(cuda, nb, share):
+    """The scan over one chunk and over many, all, some and no blocks
+    stored."""
+    rng = np.random.default_rng(nb)
+    stored = rng.random(nb) < share
+    rest = np.where(stored, 35 + 8 * rng.integers(0, 32769, nb),
+                    rng.integers(0, 300_000, nb)).astype(np.int64)
+    r, s = torch.from_numpy(rest).to(cuda), torch.from_numpy(stored).to(cuda)
+    got = BL.block_layout(r, s)
+    want = BL.block_layout_ref(r.cpu(), s.cpu())
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
