@@ -5,8 +5,8 @@
 For each TREE (a checkout of this repository, for example the parent
 commit unpacked with `git archive` into a git-ignored directory, and `.`),
 copies its `csrc/block_plan.cu`, `csrc/huffman_codes.cu` and
-`csrc/block_layout.cu` and, where the tree has it, `csrc/pack_words.cu`
-(with the headers they include) with clock64 and %globaltimer stamps
+`csrc/block_layout.cu` (with the headers they include) with clock64 and
+%globaltimer stamps
 added at the stage boundaries of the design it finds there (a two-kernel
 `block_plan` and a `huffman_codes` that ranks by an O(n) count per
 thread, or the one-launch `block_plan` and the `huffman_codes` over the
@@ -30,11 +30,18 @@ and kernel:
   * `block_layout`: thread 0's clock64 cycles from the kernel's start to
     its end (the walk or the scan, with the loads and stores), the queued
     ms of 20 launches and the profiler's ms of one;
-  * `pack_words`: the count pass's span from its first CTA's start to
-    the last ticket and from there to the last CTA's end (globaltimer),
-    and the last CTA's stages in clock64 cycles: the tiles' prefix, the
-    layout scan (reading each block's T_b and rest), the tiles' first
-    bits (median of 20 calls), beside each pass's profiler ms;
+  * `pack_words`, where the tree's kernel is the one-pass design (its
+    library exports `pack_words_resident`; the two-pass design is not
+    stamped), from the stamps the kernel itself writes when given a stats
+    buffer, over 20 calls: each unit's wait in its look-back (clock64
+    cycles: median, 90th percentile, largest) and its cycles to the
+    nearest inclusive prefix; the launch's SM clock (its units' clock64
+    spans over their globaltimer spans); each unit's CTA from its start to its aggregate and from
+    there to its end, the last aggregate after the first start and the
+    span from the first unit's start to the last unit's end
+    (globaltimer); the units in flight at the median instant; the queued
+    ms of 20 calls and the profiler's ms by name (the kernel, the
+    memset);
   * an empty kernel's queued ms per launch (the least a launch costs).
 
 The stamps cost a few instructions a stage; the numbers describe the
@@ -249,47 +256,6 @@ def layout_stamped(src: str) -> str:
          "  if (threadIdx.x == 0) g_stamps[0] = clock64() - c0;")])
 
 
-def pack_stamped(src: str) -> str:
-    """pack_words.cu with g_stamps: [0] the count pass's first CTA start,
-    [1] its last ticket, [5] the last CTA's end (globaltimer ns); [2]-[4]
-    the last CTA's tiles' prefix, layout scan (with each block's T_b and
-    rest), tiles' first bits (clock64 cycles of its thread 0)."""
-    start = ("  if (threadIdx.x == 0) {\n    unsigned long long g;\n" +
-             GT.format("g") + "    atomicMin(g_stamps + 0, g);\n  }\n")
-    ticket = ("  if (threadIdx.x == 0) {\n    unsigned long long g;\n" +
-              GT.format("g") + "    atomicMax(g_stamps + 1, g);\n  }\n")
-    return patch(src, [
-        ('#include "layout_scan.cuh"\n',
-         '#include "layout_scan.cuh"\n\nnamespace {\n'
-         "__device__ unsigned long long g_stamps[16];\n}\n"),
-        ("}  // namespace\n",
-         "}  // namespace\n" + STAMPS.split("\n", 1)[1]),
-        ("layout::Shared& s_lay) {\n",
-         "layout::Shared& s_lay) {\n"
-         "  const unsigned long long ca = clock64();\n"),
-        ("  const int64_t p_end = layout::scan(",
-         "  const unsigned long long cb = clock64();\n"
-         "  const int64_t p_end = layout::scan("),
-        ("      s_lay);\n  for (int t = threadIdx.x;",
-         "      s_lay);\n  const unsigned long long cc = clock64();\n"
-         "  for (int t = threadIdx.x;"),
-        ("    a.out[3 * a.nb + 1] = p_end;\n  }\n}",
-         "    a.out[3 * a.nb + 1] = p_end;\n  }\n  __syncthreads();\n"
-         "  if (threadIdx.x == 0) {\n    unsigned long long g;\n" +
-         GT.format("g") +
-         "    g_stamps[2] = cb - ca;\n    g_stamps[3] = cc - cb;\n"
-         "    g_stamps[4] = clock64() - cc;\n    g_stamps[5] = g;\n  }\n}"),
-        ("  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
-         "  for (int64_t i = int64_t{u} * kThreads",
-         start +
-         "  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
-         "  for (int64_t i = int64_t{u} * kThreads"),
-        ("  __threadfence();\n  __syncthreads();\n  if (threadIdx.x == 0)\n"
-         "    s_last = atomicInc(",
-         "  __threadfence();\n  __syncthreads();\n" + ticket +
-         "  if (threadIdx.x == 0)\n    s_last = atomicInc(")])
-
-
 def queued(launch, n: int = 20):
     """ms per launch of n launches queued behind a spin kernel; launch(i)
     stamps into slot i."""
@@ -412,14 +378,17 @@ def probe_layout_and_pack(tree: Path, inputs: dict, out: dict,
                 local_headers(csrc, src))
     lib.block_layout_launch.argtypes = [vp, vp, i64, vp, vp, vp, i32, vp]
     lib.probe_stamps.argtypes = [vp, i32]
-    has_pack = (csrc / "pack_words.cu").exists()
-    if has_pack:
+    plib = None
+    if (csrc / "pack_words.cu").exists():
         psrc = (csrc / "pack_words.cu").read_text()
-        plib = build(f"pack_words_{tag}", pack_stamped(psrc),
-                     local_headers(csrc, psrc))
-        plib.pack_words_launch.argtypes = [
-            *[vp] * 13, i64, i32, i64, *[vp] * 5, i32, i32, vp]
-        plib.probe_stamps.argtypes = [vp, i32]
+        plib = build(f"pack_words_{tag}", psrc, local_headers(csrc, psrc))
+        # the one-pass kernel's library answers its occupancy query
+        if hasattr(plib, "pack_words_resident"):
+            plib.pack_words_launch.argtypes = [
+                *[vp] * 14, i64, i32, i64, vp, vp, vp, i32, vp]
+        else:
+            out["pack_words"] = "the two-pass design: not stamped here"
+            plib = None
     host = np.zeros(16, np.uint64)
     for size, got in inputs.items():
         a = got["pack_words"][2]
@@ -448,49 +417,64 @@ def probe_layout_and_pack(tree: Path, inputs: dict, out: dict,
             "kernel_cycles_median_max": median_max(cyc),
             "queued_ms": ms, "covered": covered,
             "profiler_ms": sum(profiled_ms(run, 5).values())}
-        if not has_pack:
-            continue
-        S, NB = a[0].shape[0], a[0].shape[0] // 32768
-        NU = S // 4096
-        words = torch.empty(a[14], dtype=torch.int64, device="cuda")
-        off = torch.empty(S, dtype=torch.int64, device="cuda")
-        po = torch.empty(3 * NB + 2, dtype=torch.int64, device="cuda")
-        scr = torch.empty(NU + 4 * NB + 1, dtype=torch.int64,
-                          device="cuda")
-        ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+        if plib is not None:
+            out[f"pack_words_{size}"] = probe_one_pass(plib, a)
 
-        def pack(which):
-            rc = plib.pack_words_launch(
-                *[t.data_ptr() for t in a[:13]], S, int(a[13]), a[14],
-                words.data_ptr(), off.data_ptr(), po.data_ptr(),
-                scr.data_ptr(), ticket.data_ptr(), which, 0, raw(0))
-            if rc:
-                raise RuntimeError(f"launch failed: cudaError {rc}")
-        rows = []
-        for _ in range(20):
-            plib.probe_stamps(host.ctypes.data, 1)
-            pack(0)
-            pack(1)
-            torch.cuda.synchronize()
-            plib.probe_stamps(host.ctypes.data, 0)
-            rows.append(host.astype(np.float64))
-        q = np.array(rows)
-        want = PW.pack_words_ref(*a)
-        same = (torch.equal(words, want.words)
-                and torch.equal(off, want.off_pos)
-                and torch.equal(po[:NB], want.block_base))
-        prof = profiled_ms(lambda: (pack(0), pack(1)), 5)
-        out[f"pack_words_{size}"] = {
-            "units": NU, "blocks": NB, "equal_plain": same,
-            "count_first_start_to_last_ticket_us": float(
-                np.median(q[:, 1] - q[:, 0]) / 1e3),
-            "last_ticket_to_last_cta_end_us": float(
-                np.median(q[:, 5] - q[:, 1]) / 1e3),
-            "last_cta_cycles_median": {
-                "tile_prefix": float(np.median(q[:, 2])),
-                "layout_scan_with_rest": float(np.median(q[:, 3])),
-                "tile_first_bits": float(np.median(q[:, 4]))},
-            "profiler_ms": {k: v for k, v in prof.items()}}
+
+def probe_one_pass(plib, a) -> dict:
+    """The one-pass pack_words' row of probe_tree, from the kernel's own
+    stats buffer (each unit's look-back in clock64 cycles, its start and
+    end on the globaltimer)."""
+    from deflate_compression_tpu_torch.ops import pack_words as PW
+    raw = cuda_build.raw_stream()
+    S, NB, nw = a[0].shape[0], a[0].shape[0] // 32768, a[15]
+    NU, NSUB = S // 4096, S // 64
+    buf = torch.empty(nw + 3 * NB + 4 + 2 * NU, dtype=torch.int64,
+                      device="cuda")
+    ent = torch.empty(3 * NSUB, dtype=torch.int64, device="cuda")
+    st = torch.zeros((20, NU, 7), dtype=torch.int64, device="cuda")
+
+    def pack(i=0, stats=True):
+        rc = plib.pack_words_launch(
+            *[t.data_ptr() for t in a[:14]], S, int(a[14]), nw,
+            buf.data_ptr(), ent.data_ptr(),
+            st[i].data_ptr() if stats else None, 0, raw(0))
+        if rc:
+            raise RuntimeError(f"launch failed: cudaError {rc}")
+    for i in range(20):
+        pack(i)
+    torch.cuda.synchronize()
+    want = PW.pack_words_ref(*a)
+    same = (torch.equal(buf[:nw], want.words)
+            and torch.equal(buf[nw:nw + NB], want.block_base)
+            and torch.equal(ent[:NSUB], want.sub_bit))
+    q = st.cpu().numpy().astype(np.float64)
+    cyc = q[:, :, 0].reshape(-1)
+    ghz = (q[:, :, 6] - q[:, :, 5]).sum(1) / (q[:, :, 3] - q[:, :, 1]).sum(1)
+    span = q[:, :, 3].max(1) - q[:, :, 1].min(1)
+    mid = (q[:, :, 1].min(1) + q[:, :, 3].max(1)) / 2
+    in_flight = ((q[:, :, 1] <= mid[:, None])
+                 & (q[:, :, 3] >= mid[:, None])).sum(1)
+    ms, covered = queued(lambda i: pack(stats=False))
+    return {
+        "units": NU, "blocks": NB, "equal_plain": same,
+        "lookback_cycles_median_p90_max": [
+            float(np.median(cyc)), float(np.percentile(cyc, 90)),
+            float(cyc.max())],
+        "to_inclusive_found_cycles_median": float(np.median(q[:, :, 4])),
+        "clock_ghz_median_min_max": [float(np.median(ghz)),
+                                     float(ghz.min()), float(ghz.max())],
+        "unit_us_median": float(np.median(q[:, :, 3] - q[:, :, 1]) / 1e3),
+        "to_aggregate_us_median": float(
+            np.median(q[:, :, 2] - q[:, :, 1]) / 1e3),
+        "after_aggregate_us_median": float(
+            np.median(q[:, :, 3] - q[:, :, 2]) / 1e3),
+        "last_aggregate_after_start_us_median": float(np.median(
+            q[:, :, 2].max(1) - q[:, :, 1].min(1)) / 1e3),
+        "span_us_median": float(np.median(span) / 1e3),
+        "units_in_flight_at_mid_median": float(np.median(in_flight)),
+        "queued_ms": ms, "covered": covered,
+        "profiler_ms": profiled_ms(lambda: pack(stats=False), 5)}
 
 
 def main(argv) -> int:

@@ -18,8 +18,8 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
   4. the encode slice: ZlibCodec.compress of an ~8.5 MB corpus on the card,
      checked by zlib.decompress, with the launch counts of its six
      kernels (find_matches, lz_parse, tile_histogram, block_plan,
-     huffman_codes and pack_words: 1, 1, 2, 1, 2 and 2 per shard;
-     block_layout 0: its scan runs inside pack_words' count pass);
+     huffman_codes and pack_words: 1, 1, 2, 1, 2 and 1 per shard;
+     block_layout 0: pack_words' look-back carries the layout);
   5. encode_shard on the card against the port on the CPU, bit for bit, for
      the first and the last shard, and the whole stream of phase 4;
   6. build: decode_symbols.cu, lut_gather.cu, build_tables.cu and
@@ -83,8 +83,8 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      match and parse kernels), and tokenize's peak device memory at 4 MB;
  15. the encoder's block stage: block_plan, huffman_codes and block_layout
      against their plain versions on the inputs every encode_shard of
-     phase 4's and phase 10's corpora handed them (block_layout, which the
-     encoder runs inside pack_words, on each encode's layout:
+     phase 4's and phase 10's corpora handed them (block_layout, whose
+     work the encoder does inside pack_words, on each encode's layout:
      `corpus.layout_inputs`), of a block_type="fixed"
      and a "stored" encode of 2 MB, and on the cases of
      `corpus.block_plan_case`, `huffman_case` and `layout_case`: the split,
@@ -99,12 +99,17 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      chain's steps at the SM clock nvidia-smi reads), with block_plan's
      DP time a step from the clock64 cycles its kernel reports;
  16. the encoder's pack: pack_words against its plain version, exactly
-     (words, total_bits, layout, token bits, off_pos), on every call of
-     phase 15 and on `corpus.pack_case`'s synthetic shards, its layout
-     against block_layout's plain version, the wrapper under sync debug
-     mode "error"; its times as in phase 3 at phase 4's first shard and
-     phase 10's, each pass (count, write) by the profiler, beside the
-     bound (bytes over 3.35 TB/s).
+     (words, total_bits, layout, token bits and the decode entries
+     sub_bit, sub_out, sub_blk, sub_overflow), on every call of phase 15
+     and on `corpus.pack_case`'s synthetic shards, its layout against
+     block_layout's plain version, the wrapper under sync debug mode
+     "error"; its times as in phase 3 at phase 4's first shard and phase
+     10's (the kernel and its memset each by the profiler), beside the
+     bound (the bytes this data needs over 3.35 TB/s: a position's 18
+     only in blocks with Huffman codes, a stored block's bytes), the
+     look-back's wait per unit in clock64 cycles, taken to ns at the
+     launch's own clock, and the kernel's span on the globaltimer
+     (`stats`), and one 4 MB encode_shard's peak device memory.
 Any failure raises, so the script exits non-zero. Before the last line it
 prints the kernels' JSON line: per kernel its launches on the main path
 (the 1 MB-shard encode of phase 4 and decode of phase 8), on the 4 MB-
@@ -131,10 +136,16 @@ block_plan, huffman_codes and block_layout carry `serial_depth` and the
 same at phase 10's first shard (`*_4mb`), huffman_codes its 7-bit call
 (`ms_7bit`, `*_7bit_4mb`), block_plan `max_rel_err_cost`, `min_gap` and
 `dp_ns_per_step` (`*_4mb`), the three `serial_bound_ms` (`*_4mb`,
-`*_7bit`), block_layout `main_path`; pack_words carries `count_ms` and
-`write_ms` (each pass by the profiler), the same at phase 10's first
-shard (`*_4mb`), `calls_held`, `layout_scan_max_abs_err` and
-`peak_gib_4mb_encode` (phase 10's encode).
+`*_7bit`), block_layout `main_path`; pack_words carries `kernel_ms` and
+`memset_ms` (each by the profiler), `clock_ghz` (the SM clock of the
+launch with stats: its units' clock64 cycles over their globaltimer ns),
+`lookback_ns_median` and `lookback_ns_max` (a unit's wait in its
+look-back, its cycles at that clock), `to_aggregate_us`
+(a unit's start to its aggregate, median), `span_us` (first unit's
+start to last unit's end), the same at phase 10's first shard
+(`*_4mb`), `resident_units`, `calls_held`, `layout_scan_max_abs_err`,
+`peak_gib_4mb_encode` (phase 10's encode) and
+`encode_shard_peak_mib_4mb` (one 4 MB encode_shard).
 The last line is the JSON result {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -184,7 +195,7 @@ BOOST_GHZ = 1.98
 ENCODE_KERNELS = ("find_matches", "lz_parse")
 BLOCK_KERNELS = ("block_plan", "huffman_codes", "block_layout")
 PACK = "pack_words"
-PACK_PASSES = ("pack_count_kernel", "pack_write_kernel")
+PACK_KERNEL = "pack_words_kernel"
 F32_TFLOPS = 67.0                # H100 SXM float32 outside the tensor cores
 # lz_parse's integer operations per position, counted in csrc/lz_parse.cu:
 # the run test and search (about 4), three chain rounds (6 each), the
@@ -418,6 +429,7 @@ def main() -> int:
     lz = lz77_phase(raw, cfg, dev)
     blk = block_stage_phase(raw, cfg, dev)
     pk = pack_phase(blk, dev)
+    blk_peak = blk.pop("encode_peak_mib")
     del blk["packs"], blk["first_packs"]
 
     def new_paths(name):
@@ -502,20 +514,22 @@ def main() -> int:
          "source": "deflate_compression_tpu_torch/csrc/pack_words.cu",
          "replaces": "deflate_compression_tpu/core/bits.py:95,182 "
          "(pack_items64_to_words, pack_items96_to_words) and "
-         "format/deflate.py:421-640 (token items, layout, item offsets, "
-         "the two packs, stored payloads; left to XLA there: no Pallas "
-         "kernel)",
+         "format/deflate.py:421-676 (token items, layout, item offsets, "
+         "the two packs, stored payloads, sub-block decode entries; left "
+         "to XLA there: no Pallas kernel)",
          "launches": enc_launches[PACK], **new_paths(PACK),
          "max_abs_err": pk["max_abs_err"], **entry(pk["times"]["1mb"]),
          "library_ms": None, "calls_held": pk["calls"],
          "by_kernel": pk["times"]["1mb"]["by_kernel"],
-         "count_ms": pk["times"]["1mb"]["count_ms"],
-         "write_ms": pk["times"]["1mb"]["write_ms"],
+         **{k: pk["times"]["1mb"][k] for k in PACK_EXTRA},
          **{f"{k}_4mb": pk["times"]["4mb"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "share_of_bound", "call_ms", "plain_call_ms",
-                      "prof_ms", "plain_prof_ms", "count_ms", "write_ms")},
+                      "prof_ms", "plain_prof_ms", *PACK_EXTRA)},
+         "resident_units": pk["resident"],
          "peak_gib_4mb_encode": large["peak_gib"],
+         "encode_shard_peak_mib_4mb": blk_peak["4mb"],
+         "encode_shard_peak_mib": blk_peak["1mb"],
          "layout_scan_max_abs_err": pk["layout_err"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1426,10 +1440,10 @@ def counters() -> dict:
 
 def encode_counts(nsh: int) -> dict:
     """Each kernel's launches in an encode of nsh shards of more than one
-    tile, the blocks chosen by cost (the layout runs inside pack_words)."""
+    tile, the blocks chosen by cost (pack_words carries the layout)."""
     return {"tile_histogram": 2 * nsh, **{k: nsh for k in ENCODE_KERNELS},
             "block_plan": nsh, "huffman_codes": 2 * nsh, "block_layout": 0,
-            PACK: 2 * nsh, **{k: 0 for k in DECODE_KERNELS}}
+            PACK: nsh, **{k: 0 for k in DECODE_KERNELS}}
 
 
 def decode_counts(n: int) -> dict:
@@ -1640,7 +1654,7 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
                              "1-rank NCCL run")
     per_rank = [len(range(r, nsh, 2)) for r in range(2)]
     if [[x[k] for k in ("tile_histogram", *BLOCK_KERNELS, PACK)]
-            for x in ranks] != [[2 * n, n, 2 * n, 0, 2 * n]
+            for x in ranks] != [[2 * n, n, 2 * n, 0, n]
                                 for n in per_rank]:
         raise AssertionError(f"2 gloo ranks launched {ranks}")
     if info_r["resumed_at_shard"] != 4 or resumed != blob or \
@@ -1978,22 +1992,24 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
     """Phase 15: block_plan, huffman_codes and block_layout against their
     plain versions, on the inputs every encode_shard of phase 4's and
     phase 10's corpora and of a fixed and a stored 2 MB encode handed
-    them (block_layout on the layout that encode's pack_words ran inside
-    its count pass: `corpus.layout_inputs`), and on corpus's block-stage
+    them (block_layout on the layout that encode's pack_words carried in
+    its look-back: `corpus.layout_inputs`), and on corpus's block-stage
     cases; their times at phase 4's first shard ("1mb") and phase 10's
     ("4mb"). Returns each kernel's largest error, timings, serial depth
-    and extra keys, and the pack_words calls for phase 16."""
+    and extra keys, the pack_words calls for phase 16 and the device
+    memory each first shard's encode_shard allocated at its peak."""
     from deflate_compression_tpu_torch import corpus
     from deflate_compression_tpu_torch.corpus import build_corpus
     from deflate_compression_tpu_torch.format import constants as C
-    from deflate_compression_tpu_torch.format.deflate import MAX_MERGE
+    from deflate_compression_tpu_torch.format.deflate import (MAX_MERGE,
+                                                              encode_shard)
     from deflate_compression_tpu_torch.ops import block_layout as BL
     from deflate_compression_tpu_torch.ops import block_plan as BP
     from deflate_compression_tpu_torch.ops import huffman_codes as HC
 
     calls = []                      # (label, row, args)
     packs = []                      # (label, pack_words args)
-    first = {}
+    first, peak = {}, {}
     for size, data, S in (("1mb", raw, cfg.shard_size),
                           ("4mb", build_corpus(LARGE_CORPUS_BYTES),
                            LARGE_SHARD)):
@@ -2012,6 +2028,15 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
             if s_ == 0:
                 first[size] = {row: a for row, (_, _, a, _) in got.items()}
                 first[size]["pack_words"] = packs[-1][1]
+                xd = x.to(dev)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                encode_shard(xd, vl, fin)
+                torch.cuda.synchronize()
+                peak[size] = (torch.cuda.max_memory_allocated()
+                              - base) / 2**20
+                del xd
     for btype, label in ((C.BTYPE_FIXED, "fixed"), (C.BTYPE_STORED,
                                                     "stored")):
         x, vl, _ = shard_input(raw[:2 << 20], 2 << 20, 0)
@@ -2137,7 +2162,7 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
           f"4 and 10, a fixed and a stored 2 MB encode, "
           f"{len(corpus.BLOCK_PLAN_CASES)} + {len(corpus.HUFFMAN_CASES)} + "
           f"{len(corpus.LAYOUT_CASES)} cases; block_layout on the layout "
-          f"each encode's pack_words ran inside its count pass); max abs err "
+          f"each encode's pack_words carried in its look-back); max abs err "
           f"{err}; segment "
           f"costs' largest relative error {rel:.3e}; smallest DP margin "
           f"between best and second-best candidate {gap:.4f} bits ({gap_at})"
@@ -2162,36 +2187,61 @@ def block_stage_phase(raw: bytes, cfg, dev) -> dict:
                       "huffman_codes": {**t7,
                                         **bound_keys("huffman_codes")},
                       "block_layout": {**bound_keys("block_layout"),
-                                       "main_path": "inside pack_words' "
-                                       "count pass (csrc/layout_scan.cuh)"}},
+                                       "main_path": "carried by pack_words' "
+                                       "look-back (the maps of csrc/"
+                                       "layout_scan.cuh)"}},
             "packs": packs, "first_packs": {k: v["pack_words"]
-                                            for k, v in first.items()}}
+                                            for k, v in first.items()},
+            "encode_peak_mib": peak}
 
 
 # ------------------------------------------------ 16. the encoder's pack
 
+PACK_EXTRA = ("kernel_ms", "memset_ms", "clock_ghz", "lookback_ns_median",
+              "lookback_ns_max", "to_aggregate_us", "span_us")
+
+
 def pack_bytes(a) -> int:
     """The bytes pack_words must move on its arguments `a` (as encode_shard
-    hands them): each input read once (18 a position: the chosen flag, the
-    byte, length and distance; the tables, header items and per-block
-    arrays), each output written once (the words, off_pos, the layout)."""
-    S, NB, nw = a[0].shape[0], a[0].shape[0] // WINDOW, a[14]
-    return (sum(t.numel() * t.element_size() for t in a[:13])
-            + 8 * (nw + S + 3 * NB + 2))
+    hands them), counted on this data. Read once: 18 a position of the
+    tiles whose block has Huffman codes (the chosen flag, the byte, the
+    int64 length and distance), a stored block's `blen` bytes, each tile's
+    block, the used blocks' start, flags, blen and header widths, the
+    values of their nonzero-width header items, the table words of the
+    symbols a Huffman block codes, the stride. Written once: the words
+    (zeroed by the memset and written, counted once), the layout and token
+    bits of every bucket, the tail and the NSUB decode entries, three
+    int64 each."""
+    from deflate_compression_tpu_torch.ops.pack_words import H_ITEMS
+    blk, huff, sto, blen, ll, d, nbs = (a[i].cpu() for i in
+                                        (4, 6, 7, 8, 9, 10, 12))
+    S, NB, nw = a[0].shape[0], a[0].shape[0] // WINDOW, a[15]
+    nbu = int(blk.max()) + 1                  # the blocks used
+    huff, sto, blen, nbs = huff[:nbu], sto[:nbu], blen[:nbu], nbs[:nbu]
+    tabs = torch.cat([ll[:nbu][huff][:, :-1], d[:nbu][huff][:, :-1]], 1)
+    reads = (18 * WINDOW * int(huff[blk].sum())
+             + int(blen[sto].clamp(max=WINDOW).sum())
+             + 8 * NB + nbu * (8 + 1 + 1 + 8 + 8 * H_ITEMS)
+             + 8 * int((nbs > 0).sum()) + 8 * int((tabs >> 16 > 0).sum())
+             + 8)
+    return reads + 8 * (nw + 3 * NB + 3) + 24 * (S // 64)
 
 
 def pack_phase(blk: dict, dev) -> dict:
     """Phase 16: pack_words against its plain version, exactly (words,
-    total_bits, block_base, pad, token bits, off_pos), on every call of
-    phase 15 (every shard of phases 4 and 10, a fixed and a stored
-    encode) and on corpus.pack_case's shards; its layout against
-    block_layout's plain version on those encodes; the wrapper once under
-    sync debug mode "error"; its and its plain version's times at phase
-    4's first shard ("1mb") and phase 10's ("4mb"), each pass by the
-    profiler, beside the bound."""
+    total_bits, block_base, pad, token bits, sub_bit, sub_out, sub_blk,
+    sub_overflow), on every call of phase 15 (every shard of phases 4 and
+    10, a fixed and a stored encode) and on corpus.pack_case's shards; its
+    layout against block_layout's plain version on those encodes; the
+    wrapper once under sync debug mode "error"; its and its plain
+    version's times at phase 4's first shard ("1mb") and phase 10's
+    ("4mb"), the kernel and its memset by the profiler, beside the bound;
+    the look-back's wait per unit (clock64) and the kernel's span
+    (globaltimer) from one call with `stats`."""
     from deflate_compression_tpu_torch import corpus
     from deflate_compression_tpu_torch.ops import block_layout as BL
     from deflate_compression_tpu_torch.ops import pack_words as PW
+    from deflate_compression_tpu_torch.ops.timing import profiled_ms
     calls = list(blk["packs"])
     calls += [(name, tuple(torch.from_numpy(x).to(dev)
                            if isinstance(x, np.ndarray) else x
@@ -2210,36 +2260,63 @@ def pack_phase(blk: dict, dev) -> dict:
     a1 = blk["first_packs"]["1mb"]
     got = no_sync(lambda: PW.pack_words(*a1))
     same(got, PW.pack_words_ref(*a1), "pack_words under sync debug mode")
+    resident = PW.resident_units(dev)
     times, shown = {}, []
     for size, a in blk["first_packs"].items():
         n_bytes = pack_bytes(a)
-        t = times[size] = timings("pack_", lambda: PW.pack_words(*a),
+        t = times[size] = timings(PACK_KERNEL, lambda: PW.pack_words(*a),
                                   lambda: PW.pack_words_ref(*a), 20, 5,
-                                  n_bytes, reps=5, plain_n=0,
-                                  expect=PACK_PASSES)
-        t["count_ms"], t["write_ms"] = (t["by_kernel"].get(k)
-                                        for k in PACK_PASSES)
-        passes = " and ".join(
-            f"{name} pass " + ("not measured (the profiler kept no event "
-                               "of it)" if ms is None else f"{ms:.4f} ms")
-            for name, ms in zip(("count", "write"),
-                                (t["count_ms"], t["write_ms"])))
+                                  n_bytes, reps=5, plain_n=0)
+        by = profiled_ms(lambda: PW.pack_words(*a), 5, (PACK_KERNEL,))
+        t["kernel_ms"] = sum(v for k, v in by.items() if PACK_KERNEL in k)
+        mem = [v for k, v in by.items() if "emset" in k]
+        t["memset_ms"] = sum(mem) if mem else None
+        st = {}
+        same(PW.pack_words(*a, stats=st), PW.pack_words_ref(*a),
+             f"pack_words with stats, {size}")
+        torch.cuda.synchronize()
+        # cycles to ns at this launch's own clock: its units' clock64 spans
+        # over their globaltimer spans
+        ghz = t["clock_ghz"] = float(
+            (st["end_cycles"] - st["start_cycles"]).double().sum()
+            / (st["end_ns"] - st["start_ns"]).double().sum())
+        cyc = st["lookback_cycles"].double()
+        t["lookback_ns_median"] = float(cyc.median()) / ghz
+        t["lookback_ns_max"] = float(cyc.max()) / ghz
+        t["span_us"] = float(st["end_ns"].max() - st["start_ns"].min()) / 1e3
+        t["to_aggregate_us"] = float(
+            (st["aggregate_ns"] - st["start_ns"]).double().median()) / 1e3
+        nu = a[0].shape[0] // PW.UNIT
+        mems = ("not measured (the profiler kept no memset event)"
+                if t["memset_ms"] is None else f"{t['memset_ms']:.4f} ms")
         shown.append(
-            f"{size} shard 0 ({a[0].shape[0]} positions, "
-            f"{a[0].shape[0] // WINDOW} tiles, {n_bytes} bytes): two "
-            f"launches, {passes} by the profiler; {show(t)}")
+            f"{size} shard 0 ({a[0].shape[0]} positions, {nu} units, "
+            f"{a[0].shape[0] // WINDOW} tiles, {n_bytes} bytes, stride "
+            f"{int(a[13])}): one launch, the kernel {t['kernel_ms']:.4f} ms "
+            f"and the memset {mems} by the profiler; a unit's look-back "
+            f"waits {t['lookback_ns_median']:.0f} ns (median), "
+            f"{t['lookback_ns_max']:.0f} ns (longest) at {ghz:.3f} GHz "
+            f"(the launch's clock64 over its globaltimer), "
+            f"after {t['to_aggregate_us']:.2f} us from its start to its "
+            f"aggregate (median); "
+            f"first unit's start to last unit's end {t['span_us']:.2f} us; "
+            f"{show(t)}")
     print(f"phase 16 pack_words: tolerance 0 (exact); words, total_bits, "
-          f"block_base, pad, token bits and off_pos == the plain version "
+          f"block_base, pad, token bits and sub_bit, sub_out, sub_blk, "
+          f"sub_overflow == the plain version "
           f"on {len(calls)} calls (every shard of phases 4 and 10, a fixed "
           f"and a stored 2 MB encode, {len(corpus.PACK_CASES)} synthetic "
-          f"shards), max abs err {err}; the count pass's layout == "
+          f"shards), max abs err {err}; the look-back's layout == "
           f"block_layout's plain version on {len(blk['packs'])} encodes "
           f"(max abs err {lay_err}); the wrapper ran under sync debug mode "
-          f"\"error\"; {'; '.join(shown)}; no single PyTorch call computes "
-          f"the function")
+          f"\"error\"; {resident} units resident at once; "
+          f"{'; '.join(shown)}; one encode_shard's peak device memory "
+          f"{blk['encode_peak_mib']['1mb']:.1f} MiB (1 MB), "
+          f"{blk['encode_peak_mib']['4mb']:.1f} MiB (4 MB) above its "
+          f"input; no single PyTorch call computes the function")
     torch.cuda.synchronize()
     return {"max_abs_err": err, "layout_err": lay_err, "times": times,
-            "calls": len(calls)}
+            "calls": len(calls), "resident": resident}
 
 
 if __name__ == "__main__":

@@ -361,24 +361,35 @@ LAYOUT_CASES = ["nb32", "nb128", "nb1", "nb5000"]
 
 def pack_case(name: str) -> tuple:
     """The arguments of ops/pack_words.py::pack_words for one synthetic
-    shard, as numpy arrays and then final and num_words (the shard's
-    out_words):
-    nbN        N tiles, tokens of random lengths (literals, matches of 3 to
-               258 bytes at distances up to 32768), random block splits,
-               every type (stored blocks one tile), random code lengths of
-               1-15 bits and, in dynamic blocks, header widths (some of
-               33-40 bits; values with bits past their widths), the valid
-               bytes ending
-               inside the last tile, not final;
-    nbN_final  the same, final, every tile valid."""
-    base, final = (name[:-6], True) if name.endswith("_final") else (
-        name, False)
+    shard, as numpy arrays (the stride a 0-d one) and then final and
+    num_words (the shard's out_words):
+    nbN           N tiles, tokens of random lengths (literals, matches of
+                  3 to 258 bytes at distances up to 32768) that cross tile
+                  edges, random block splits, every type (stored blocks one
+                  tile), random code lengths of 1-15 bits and, in dynamic
+                  blocks, header widths (some of 33-40 bits; values with
+                  bits past their widths), the valid bytes ending inside
+                  the last tile, not final; the stride as encode_shard
+                  sizes it from the Huffman tokens;
+    nbN_final     the same, final, every tile valid;
+    nbN_stride5   the stride 5, so blocks' first tokens that are not
+                  multiples add entries; every other block has no token
+                  in its first 4,096 or 8,192 positions, so its first
+                  Huffman token lies a unit or two after its start;
+    nbN_every     longer matches, the stride 1: every Huffman token an
+                  entry, NSUB not reached;
+    nbN_overflow  nearly all literals, the stride 1: more entries than
+                  NSUB (the overflow flag);
+    nbN_stored    every block stored: no Huffman token, no entry."""
+    base, _, kind = name.partition("_")
+    final = kind == "final"
     NB = int(base[2:])
     S = NB * C.WINDOW_SIZE
     rng = np.random.default_rng(sum(map(ord, name)))
     valid = S if final else S - int(rng.integers(1, C.WINDOW_SIZE))
     data = rng.integers(0, 256, S).astype(np.uint8)
-    lens = np.where(rng.random(S) < 0.6, 1, rng.integers(3, 259, S))
+    p_lit = {"every": 0.3, "overflow": 0.97}.get(kind, 0.6)
+    lens = np.where(rng.random(S) < p_lit, 1, rng.integers(3, 259, S))
     starts = np.cumsum(lens) - lens
     starts = starts[starts < valid]
     chosen = np.zeros(S, bool)
@@ -390,6 +401,8 @@ def pack_case(name: str) -> tuple:
     dist[starts] = np.where(lm >= 3, rng.integers(1, 32769, len(starts)), 0)
     split = rng.random(NB) < 0.5
     split[0] = True
+    if kind == "stored":
+        split[:] = True
     blk = np.cumsum(split) - 1
     n_blocks = int(blk[-1]) + 1
     last = int(blk[(valid - 1) // C.WINDOW_SIZE])        # last emitted
@@ -400,8 +413,17 @@ def pack_case(name: str) -> tuple:
     btype[:n_blocks] = np.where(tiles[:n_blocks] > 1,
                                 np.maximum(btype[:n_blocks], 1),
                                 btype[:n_blocks])
+    if kind == "stored":
+        btype[:] = 0
     emitted = np.arange(NB) <= last
     huff = emitted & (btype != 0)
+    if kind == "stride5":
+        for b in range(0, n_blocks, 2):
+            q = start[b] * C.WINDOW_SIZE
+            n = 4096 * (1 + b % 4 // 2)
+            chosen[q:q + n] = False
+            length[q:q + n] = 0
+            dist[q:q + n] = 0
     stored = emitted & (btype == 0)
     blen = np.clip(valid - start * C.WINDOW_SIZE, 0, C.WINDOW_SIZE)
     blen = np.where(np.arange(NB) < n_blocks, blen, 0)
@@ -422,15 +444,20 @@ def pack_case(name: str) -> tuple:
     hdr_nbs[:, 338] = np.where(stored, 32, 0)
     hdr_nbs[:, 339] = np.where(huff, ll_tab[:, 256] >> 16, 0)
     hdr_nbs[~emitted] = 0
+    n_tok_h = int((chosen & np.repeat(huff[blk], C.WINDOW_SIZE)).sum())
+    nsub = S // 64
+    stride = {"stride5": 5, "every": 1, "overflow": 1}.get(
+        kind, max((n_tok_h + nsub - NB - 1) // (nsub - NB), 1))
     return (data, chosen, length, dist, blk.astype(np.int64), start, huff,
             stored, blen.astype(np.int64), ll_tab.astype(np.int64),
             d_tab.astype(np.int64), hdr_lo.astype(np.int64),
-            hdr_nbs.astype(np.int64), final,
+            hdr_nbs.astype(np.int64), np.array(stride, np.int64), final,
             (NB * (42 + 9 * C.WINDOW_SIZE) + 96) // 32)
 
 
 PACK_CASES = ["nb1", "nb1_final", "nb32", "nb32_final", "nb128",
-              "nb128_final"]
+              "nb128_final", "nb32_stride5", "nb32_every", "nb32_overflow",
+              "nb32_stored"]
 
 
 def block_stage_inputs(x, valid_len: int, final: bool = True,

@@ -13,8 +13,9 @@
 // What bounds it on this card: the launch and the chain of dependent
 // steps. The bytes are 9 NB in and 16 NB + 8 out (2.1 KB at NB = 128).
 //
-// The encoder runs the same scan inside csrc/pack_words.cu's count pass;
-// this standalone launch is the op `ops/block_layout.py::block_layout`.
+// The encoder carries the same maps through csrc/pack_words.cu's
+// look-back; this standalone launch is the op
+// `ops/block_layout.py::block_layout`.
 // One CTA of min(256, NB rounded up to 32) threads runs the log-depth
 // scan of layout_scan.cuh: a block's pad depends on p only through p mod
 // 8, so each block is a map of p mod 8 and the maps compose; the chain is

@@ -1,6 +1,7 @@
 // The shard encoder's block layout as a log-depth CTA scan, for Hopper
-// (sm_90a). Shared by csrc/block_layout.cu (its standalone launch) and
-// csrc/pack_words.cu (the count pass's last CTA, on the encoder's path).
+// (sm_90a): csrc/block_layout.cu's launch. On the encoder's path
+// csrc/pack_words.cu carries the same maps (`Map`, `apply`) through its
+// decoupled look-back, a unit of positions at a time.
 //
 // Block b, laid out from bit offset p, takes rest[b] bits and, if
 // stored[b], the pad (8 - (p + 3) % 8) % 8 = (5 - p) mod 8 that puts its

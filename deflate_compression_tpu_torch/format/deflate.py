@@ -7,9 +7,9 @@ ops/block_plan.py), given per-block length-limited Huffman tables
 (ops/huffman_codes.py), and its header items built here. ops/pack_words.py
 then serializes it: the token items, the block layout (stored-block byte
 alignment, a log-depth scan), the item offsets and the stored payloads,
-packed into LSB-first u32 words, in two launches of one kernel on the
-card. A non-final shard ends with an empty stored block, so shard
-substreams concatenate.
+packed into LSB-first u32 words, and the sub-block decode entries, in
+one pass of one kernel on the card. A non-final shard ends with an empty
+stored block, so shard substreams concatenate.
 
 The output is bit-identical to the JAX encoder's for the same input and
 options as the JAX codec runs it, under jax.jit (`encode_shard_jit`),
@@ -188,7 +188,6 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     mark = _marks or (lambda stage: None)
 
     data = data.to(torch.uint8)
-    pos = torch.arange(S, device=dev)
     b_idx = torch.arange(NB, device=dev)
     LB_micro = max((valid_len - 1) // BLOCK, 0)
 
@@ -226,7 +225,6 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     mark("block_plan")
 
     blk_id_micro = torch.cumsum(split.long(), dim=0) - 1
-    blk_of_pos = blk_id_micro.repeat_interleave(BLOCK)
     LB = blk_id_micro[LB_micro]                  # last emitted coding block
     b_emitted = b_idx <= LB
 
@@ -368,60 +366,45 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     hdr_nbs[:, _SLOT_EOB] = eob_nbs
     mark("header items")
 
-    # -------------------- token items, layout, offsets, words (2 launches)
-    # hdr_nbs's pad slot is 0 here: pack_words fills it in its own rows
-    words, total_bits, block_base, pad_b, T_b, off_pos = pack_words(
-        data, chosen, length, dist, blk_id_micro, start_micro_c, huff_b,
-        sto_emit, blen, ll_tab, d_tab, hdr_lo, hdr_nbs, final, OUT_WORDS)
-    hdr_fixed = hdr_nbs.sum(1)              # without pad, with the EOB
-    mark("pack_words")
-
     # ---------------------------------------- sub-block decode entries
-    # every `stride`-th Huffman token plus each block's first token, the
-    # stride chosen so the entries fit NSUB lanes
+    # every `stride`-th Huffman token plus each block's first one, the
+    # stride chosen so the entries fit NSUB lanes; a tile's chosen
+    # positions are its litlen histogram's sum (the others map to the
+    # dropped symbol), so no position is read here: pack_words selects them
     NSUB = S // 64
-    huff_pos = huff_b[blk_id_micro].repeat_interleave(BLOCK)
-    tok_h = chosen & huff_pos
-    th = tok_h.long()
-    cs = torch.cumsum(th, 0) - th
-    n_tok_h = cs[-1] + th[-1]
-    csb = cs[start_pos_b][blk_id_micro].repeat_interleave(BLOCK)
-    first_in_blk = tok_h & (cs == csb)
+    n_tok_h = (ll_freq_micro.sum(1) * huff_b[blk_id_micro]).sum()
     stride = torch.div(n_tok_h + NSUB - NB - 1, NSUB - NB,
                        rounding_mode="floor").clamp(min=1)
     if _test_stride is not None:      # test seam: force sub_overflow
         stride = torch.tensor(_test_stride, **i64)
-    sel = tok_h & ((cs % stride == 0) | first_in_blk)
-    sl = sel.long()
-    sel_rank = torch.cumsum(sl, 0) - sl
-    # overflow drops the entry and raises a loud stat
-    sub_overflow = (sel & (sel_rank >= NSUB)).any()
-    tgt_e = torch.where(sel & (sel_rank < NSUB), sel_rank, NSUB)
-    sub = torch.full((NSUB + 1, 3), -1, **i64)
-    sub[:, 1] = 1 << 30
-    sub[tgt_e] = torch.stack([off_pos, pos, blk_of_pos], dim=1)
-    entry_bit, entry_pos, entry_blk = sub[:NSUB, 0], sub[:NSUB, 1], sub[:NSUB, 2]
-    ev = entry_blk >= 0
-
-    n_tokens = chosen.sum() + LB + 1
-    n_matches = is_match.sum()
+    n_tokens = ll_freq_micro.sum() + LB + 1
+    n_matches = ll_freq_micro[:, C.EOB + 1:].sum()
     mark("sub-entry index")
+
+    # ------------ token items, layout, offsets, words, entries (1 launch)
+    # hdr_nbs's pad slot is 0 here: pack_words fills it in its own rows
+    pk = pack_words(data, chosen, length, dist, blk_id_micro, start_micro_c,
+                    huff_b, sto_emit, blen, ll_tab, d_tab, hdr_lo, hdr_nbs,
+                    stride, final, OUT_WORDS)
+    hdr_fixed = hdr_nbs.sum(1)              # without pad, with the EOB
+    mark("pack_words")
     return {
-        "words": words,
-        "total_bits": total_bits,
+        "words": pk.words,
+        "total_bits": pk.total_bits,
         "btype": torch.where(b_emitted, btype, -1),
-        "block_bits": torch.where(b_emitted, hdr_fixed + pad_b + T_b, 0),
+        "block_bits": torch.where(b_emitted,
+                                  hdr_fixed + pk.pad + pk.token_bits, 0),
         "block_bytes": blen,
         "tree_bits": torch.where(dyn_emit, tree_bits, 0),
         "n_tokens": n_tokens,
         "n_matches": n_matches,
-        "block_bit_base": torch.where(b_emitted, block_base, 0),
+        "block_bit_base": torch.where(b_emitted, pk.block_base, 0),
         "block_out_start": torch.where(b_emitted, start_pos_b, 0),
         "n_blocks": LB + 1,
-        "sub_bit": torch.where(ev, entry_bit, -1),
-        "sub_out": torch.where(ev, entry_pos, 1 << 30),
-        "sub_blk": torch.where(ev, entry_blk, -1),
-        "sub_overflow": sub_overflow,
+        "sub_bit": pk.sub_bit,
+        "sub_out": pk.sub_out,
+        "sub_blk": pk.sub_blk,
+        "sub_overflow": pk.sub_overflow,
     }
 
 

@@ -1,19 +1,20 @@
 """The shard encoder's bit-pack: CUDA kernel wrapper and its plain version.
 
-Counterpart of deflate_compression_tpu/format/deflate.py:421-640, which
+Counterpart of deflate_compression_tpu/format/deflate.py:421-676, which
 the JAX package left to XLA: it has no Pallas kernel. From the tokens and
 the per-block code tables and header items, the token items, the block
 layout, the item offsets, the packs into u32 words (core/bits.py's
-`pack_items64_to_words` and `pack_items96_to_words`) and the stored
-payloads.
+`pack_items64_to_words` and `pack_items96_to_words`), the stored payloads
+and the sub-block decode entries.
 
-The kernel (`csrc/pack_words.cu`: a count pass, whose last CTA runs the
-layout scan of `csrc/layout_scan.cuh`, then a write pass; two launches) is
-built at first use by `ops/cuda_build.py` and called through ctypes on
+The kernel (`csrc/pack_words.cu`: one pass over the positions, a CTA per
+4,096 of them, the layout and the entries' ranks carried by a decoupled
+look-back over maps of `csrc/layout_scan.cuh`; one memset and one launch)
+is built at first use by `ops/cuda_build.py` and called through ctypes on
 PyTorch's current stream. `pack_words` launches it for CUDA tensors and
 raises if it cannot; it takes the plain version `pack_words_ref` only for
 tensors that lie on the CPU. `pack_words.launches` counts kernel launches
-(two a call).
+(one a call).
 """
 from __future__ import annotations
 
@@ -42,13 +43,19 @@ SLOT_EOB = H_ITEMS - 1
 MAX_TILES = 32767                # S < 2^30
 
 
+NO_POS = 1 << 30                 # an unused entry's position
+
+
 class Packed(NamedTuple):
     words: torch.Tensor          # int64[num_words], u32 values
     total_bits: torch.Tensor     # int64 scalar
     block_base: torch.Tensor     # int64[NB]: each block's first bit
     pad: torch.Tensor            # int64[NB]: a stored block's pad
     token_bits: torch.Tensor     # int64[NB]: T_b
-    off_pos: torch.Tensor        # int64[S]: each position's first bit
+    sub_bit: torch.Tensor        # int64[NSUB]: an entry's bit offset, or -1
+    sub_out: torch.Tensor        # int64[NSUB]: its position, or 2^30
+    sub_blk: torch.Tensor        # int64[NSUB]: its block, or -1
+    sub_overflow: torch.Tensor   # bool scalar: an entry ranked >= NSUB
 
 
 def _ilog2(v: torch.Tensor) -> torch.Tensor:
@@ -87,9 +94,23 @@ def _bind():
     """The kernel's launch function, bound once, and the raw current-stream
     lookup."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib = cuda_build.load(SOURCE, {"pack_words_launch": [
-        *[vp] * 13, i64, i32, i64, *[vp] * 5, i32, i32, vp]})
-    return lib.pack_words_launch, cuda_build.raw_stream()
+    lib = cuda_build.load(SOURCE, {
+        "pack_words_launch": [*[vp] * 14, i64, i32, i64, vp, vp, vp, i32,
+                              vp],
+        "pack_words_resident": [i32, ctypes.POINTER(i32)]})
+    return lib, cuda_build.raw_stream()
+
+
+def resident_units(dev: torch.device) -> int:
+    """The kernel's CTAs (units of 4,096 positions) that the card holds at
+    once: a shard of more units has some wait for a free multiprocessor."""
+    lib, _ = _bind()
+    n = ctypes.c_int(0)
+    rc = lib.pack_words_resident(dev.index or 0, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"pack_words occupancy query failed: cudaError "
+                           f"{rc}")
+    return n.value
 
 
 def _check(args: dict, num_words: int) -> None:
@@ -121,12 +142,16 @@ def _check(args: dict, num_words: int) -> None:
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"want {name} {dtype} {shape}, got {x.dtype} "
                              f"{tuple(x.shape)}")
+    st = args["stride"]
+    if st.dtype != torch.int64 or st.numel() != 1:
+        raise ValueError(f"want stride an int64 scalar, got {st.dtype} "
+                         f"{tuple(st.shape)}")
     if num_words < 1:
         raise ValueError("num_words must be positive")
 
 
 def pack_words_ref(data, chosen, length, dist, blk_id, start_tile, huff,
-                   stored, blen, ll_tab, d_tab, hdr_lo, hdr_nbs,
+                   stored, blen, ll_tab, d_tab, hdr_lo, hdr_nbs, stride,
                    final: bool, num_words: int) -> Packed:
     """Plain PyTorch version of the kernel (format/deflate.py's own code
     before the kernel). Arguments and result as for `pack_words`."""
@@ -252,12 +277,35 @@ def pack_words_ref(data, chosen, length, dist, blk_id, start_tile, huff,
     buf = torch.cat([words, torch.zeros(PWs + 1, **i64)])
     buf.index_add_(0, widx.reshape(-1), win.reshape(-1))
     words = buf[:num_words]
-    return Packed(words, total_bits, block_base, pad_b, T_b, off_pos)
+
+    # ------------------------------------- sub-block decode entries
+    # every `stride`-th Huffman token plus each block's first one, at
+    # their ranks among the selected (format/deflate.py:643-676)
+    NSUB = S // 64
+    tok_h = chosen & huff_pos
+    th = tok_h.long()
+    cs = torch.cumsum(th, 0) - th
+    csb = cs[start_tile * BLOCK][blk_id_micro].repeat_interleave(BLOCK)
+    first_in_blk = tok_h & (cs == csb)
+    sel = tok_h & ((cs % stride.reshape(()).clamp(min=1) == 0)
+                   | first_in_blk)
+    sl = sel.long()
+    sel_rank = torch.cumsum(sl, 0) - sl
+    # overflow drops the entry and raises a loud stat
+    sub_overflow = (sel & (sel_rank >= NSUB)).any()
+    tgt_e = torch.where(sel & (sel_rank < NSUB), sel_rank, NSUB)
+    sub = torch.full((NSUB + 1, 3), -1, **i64)
+    sub[:, 1] = NO_POS
+    sub[tgt_e] = torch.stack([off_pos, torch.arange(S, device=dev),
+                              blk_id_micro.repeat_interleave(BLOCK)], 1)
+    return Packed(words, total_bits, block_base, pad_b, T_b, sub[:NSUB, 0],
+                  sub[:NSUB, 1], sub[:NSUB, 2], sub_overflow)
 
 
 def pack_words(data, chosen, length, dist, blk_id, start_tile, huff,
-               stored, blen, ll_tab, d_tab, hdr_lo, hdr_nbs, final: bool,
-               num_words: int) -> Packed:
+               stored, blen, ll_tab, d_tab, hdr_lo, hdr_nbs, stride,
+               final: bool, num_words: int,
+               stats: dict | None = None) -> Packed:
     """Serialize one shard's tokens and blocks into u32 words.
 
     data u8[S] (S a positive multiple of 32768 below 2^30); chosen bool[S],
@@ -271,17 +319,32 @@ def pack_words(data, chosen, length, dist, blk_id, start_tile, huff,
     each symbol's reversed code | length << 16 (codes of at most 15 bits;
     the last column is unused); hdr_lo and hdr_nbs int64[NB, 340], the
     header items' values and widths (slot 337, the pad, is filled in here;
-    slot 339 is the EOB). final: no empty stored block after the last
-    block. All contiguous, on one device.
+    slot 339 is the EOB). stride: an int64 scalar >= 1, the decode
+    entries' stride among the Huffman tokens (chosen positions of blocks
+    with `huff`). final: no empty stored block after the last block. All
+    contiguous, on one device.
 
     Returns `Packed`: words int64[num_words] holding the u32 words (past
-    total_bits 0), total_bits, block_base, pad and token_bits int64[NB],
-    off_pos int64[S]. A CUDA tensor goes through the CUDA kernel (two
-    launches, or this raises); a CPU tensor through `pack_words_ref`."""
+    total_bits 0), total_bits, block_base, pad and token_bits int64[NB];
+    the decode entries sub_bit, sub_out and sub_blk int64[NSUB] (NSUB = S
+    / 64): each Huffman token whose rank among them is a multiple of the
+    stride, or which is its block's first, at its rank among those (its
+    item's bit offset, its position, its block), the slots left (-1,
+    2^30, -1); sub_overflow, whether one ranked >= NSUB and was dropped.
+    A CUDA tensor goes through the CUDA kernel (one memset and one launch,
+    or this raises); a CPU tensor through `pack_words_ref`. On the card a
+    `stats` dict gets "lookback_cycles" (each unit's wait in its look-back,
+    clock64 cycles), "start_ns", "aggregate_ns" and "end_ns" (each unit's
+    CTA's start, its aggregate's publication and its end on the
+    globaltimer), "found_cycles" (the look-back's cycles to the nearest
+    inclusive prefix) and "start_cycles", "end_cycles" (its SM's clock64 at
+    its start and its end: with start_ns and end_ns they convert this
+    launch's cycles to ns), int64[NU] each (NU = S / 4096)."""
     args = {"data": data, "chosen": chosen, "length": length, "dist": dist,
             "blk_id": blk_id, "start_tile": start_tile, "huff": huff,
             "stored": stored, "blen": blen, "ll_tab": ll_tab,
-            "d_tab": d_tab, "hdr_lo": hdr_lo, "hdr_nbs": hdr_nbs}
+            "d_tab": d_tab, "hdr_lo": hdr_lo, "hdr_nbs": hdr_nbs,
+            "stride": stride}
     num_words = int(num_words)
     _check(args, num_words)
     dev = data.device
@@ -294,25 +357,33 @@ def pack_words(data, chosen, length, dist, blk_id, start_tile, huff,
         if args[name].data_ptr() % 16:
             args[name] = args[name].clone()
     S = data.shape[0]
-    NB, NU = S // BLOCK, S // UNIT
-    words = torch.empty(num_words, dtype=torch.int64, device=dev)
-    off_pos = torch.empty(S, dtype=torch.int64, device=dev)
-    out = torch.empty(3 * NB + 2, dtype=torch.int64, device=dev)
-    scratch = torch.empty(NU + 4 * NB + 1, dtype=torch.int64, device=dev)
-    launch, stream = _bind()
-    st = stream(dev.index)
-    ptrs = [x.data_ptr() for x in args.values()]
-    tail = (words.data_ptr(), off_pos.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), cuda_build.ticket(dev, st).data_ptr())
-    for which in (0, 1):
-        rc = launch(*ptrs, S, int(bool(final)), num_words, *tail, which,
-                    dev.index, st)
-        if rc != 0:
-            raise RuntimeError(f"pack_words launch {which} failed: "
-                               f"cudaError {rc}")
-        pack_words.launches += 1
-    return Packed(words, out[3 * NB], out[:NB], out[NB:2 * NB],
-                  out[2 * NB:3 * NB], off_pos)
+    NB, NU, NSUB = S // BLOCK, S // UNIT, S // 64
+    # words | base, pad, T_b | total_bits, p_end, overflow, counter | the
+    # look-back's status words and second words: zeroed by one memset
+    buf = torch.empty(num_words + 3 * NB + 4 + 2 * NU, dtype=torch.int64,
+                      device=dev)
+    entries = torch.empty((3, NSUB), dtype=torch.int64, device=dev)
+    st = torch.empty((NU, 7), dtype=torch.int64, device=dev) \
+        if stats is not None else None
+    lib, stream = _bind()
+    rc = lib.pack_words_launch(
+        *[x.data_ptr() for x in args.values()], S, int(bool(final)),
+        num_words, buf.data_ptr(), entries.data_ptr(),
+        st.data_ptr() if st is not None else None, dev.index,
+        stream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"pack_words launch failed: cudaError {rc}")
+    pack_words.launches += 1
+    if st is not None:
+        stats.update(lookback_cycles=st[:, 0], start_ns=st[:, 1],
+                     aggregate_ns=st[:, 2], end_ns=st[:, 3],
+                     found_cycles=st[:, 4], start_cycles=st[:, 5],
+                     end_cycles=st[:, 6])
+    o = num_words + 3 * NB
+    return Packed(buf[:num_words], buf[o], buf[num_words:num_words + NB],
+                  buf[num_words + NB:num_words + 2 * NB],
+                  buf[num_words + 2 * NB:o], entries[0], entries[1],
+                  entries[2], buf[o + 2:o + 3].view(torch.bool)[0])
 
 
 pack_words.launches = 0

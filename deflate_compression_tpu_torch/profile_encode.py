@@ -13,8 +13,9 @@ torch.cuda.synchronize()):
     more than the whole): tokenize, token fields, tile histograms,
     block_plan, block histograms, huffman_codes 11-bit, tree RLE, clen
     histogram, huffman_codes 7-bit, bit costs, code tables, header items,
-    pack_words (the token items, layout, offsets, words and stored
-    payloads: the kernel's two launches), sub-entry index;
+    sub-entry index (the stride, from the tile histograms), pack_words
+    (the token items, layout, offsets, words, stored payloads and decode
+    entries: one memset and one launch of the kernel);
   * the block stage's and back end's ops (block_plan, huffman_codes at 11
     and 7 bits, pack_words) on the inputs that encode handed them, each
     beside its plain version on the same inputs on the card, and

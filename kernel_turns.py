@@ -52,8 +52,9 @@ ops/timing.py` (loaded by path, so every tree is timed alike):
     and 7 bits, and `block_layout` or `pack_words`): device ms per call
     (20 calls queued behind a spin kernel), profiler ms by kernel name
     (for pack_words also its plain version's, the torch code of the
-    trees before it), a SHA-256 of each result's bytes (and of
-    block_plan's segment costs), and the DP's time a step: its loop's
+    trees before it), a SHA-256 of each result's bytes (pack_words' words,
+    total_bits, layout and token bits, which both its designs return;
+    block_plan's segment costs too), and the DP's time a step: its loop's
     clock64 cycles over the tiles where the tree's kernel reports them
     (`stats["dp_cycles"]`, in ns at the card's SM clock read by
     nvidia-smi after the run), else its DP kernel's profiler time over
@@ -78,6 +79,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 CORPUS_BYTES = 8_500_000
+# pack_words' result fields that every tree with the kernel returns (the
+# two-pass kernel returned off_pos where the one-pass kernel returns the
+# decode entries; encode_shard's hash covers both through sub_*)
+PACK_SHARED = ("words", "total_bits", "block_base", "pad", "token_bits")
 
 
 def _helpers():
@@ -337,6 +342,8 @@ def block_stage_times(T, dev) -> dict:
             st = {} if name == "block_plan" else None
             got = BP.block_plan(*a, **k, stats=st) if st is not None \
                 else fn()
+            if name == "pack_words":    # the fields every tree's has
+                got = [getattr(got, f) for f in PACK_SHARED]
             r[name]["sha256"] = digest(leaves(got))
             if st is not None:
                 M = a[0].shape[0]

@@ -112,7 +112,7 @@ def test_encode_shard_cuda_matches_cpu(cuda, size, valid_len, final):
     before = [f.launches for f in fns]
     g = td.encode_shard(x.to(cuda), valid_len, final)
     assert [f.launches - n for f, n in zip(fns, before)] == [2, 1, 1, 1, 2, 0,
-                                                             2]
+                                                             1]
     c = td.encode_shard(x, valid_len, final)
     nw = (int(c["total_bits"]) + 31) // 32
     assert torch.equal(g["words"][:nw].cpu(), c["words"][:nw])
@@ -1178,12 +1178,12 @@ def test_block_layout_kernel_matches_plain(cuda, name):
 @pytest.mark.parametrize("btype,plans", [(0, 0), (1, 0), (2, 1)])
 def test_encode_shard_forced_btype_launches(cuda, btype, plans):
     """Forced fixed or stored blocks skip the DP; the codes and the pack
-    (whose count pass runs the layout) run in every encode."""
+    (whose look-back carries the layout) run in every encode."""
     x = torch.from_numpy(corpus.sample("mixed", 1 << 18, seed=2))
     fns = (BP.block_plan, HC.huffman_codes, BL.block_layout, PW.pack_words)
     before = [f.launches for f in fns]
     g = td.encode_shard(x.to(cuda), 250_000, True, force_btype=btype)
-    assert [f.launches - n for f, n in zip(fns, before)] == [plans, 2, 0, 2]
+    assert [f.launches - n for f, n in zip(fns, before)] == [plans, 2, 0, 1]
     c = td.encode_shard(x, 250_000, True, force_btype=btype)
     for k in c:
         assert torch.equal(g[k].cpu(), c[k]), k
@@ -1217,12 +1217,12 @@ def test_block_stage_wrappers_do_not_synchronize(cuda):
 
 def _same_pack(a, final, nw):
     """pack_words on the card against its plain version on the same
-    arguments: every field exactly, and two launches."""
+    arguments: every field exactly, and one launch."""
     before = PW.pack_words.launches
     got = PW.pack_words(*a, final, nw)
     want = PW.pack_words_ref(*a, final, nw)
     torch.cuda.synchronize()
-    assert PW.pack_words.launches == before + 2
+    assert PW.pack_words.launches == before + 1
     for field in want._fields:
         assert torch.equal(getattr(got, field), getattr(want, field)), field
     return got
@@ -1250,11 +1250,48 @@ def test_pack_words_kernel_matches_plain_on_encoder_shards(
     kw = {} if btype is None else {"force_btype": btype}
     _, _, a, _ = corpus.block_stage_inputs(x, valid_len, final,
                                            **kw)["pack_words"]
-    got = _same_pack(a[:13], a[13], a[14])
+    got = _same_pack(a[:14], a[14], a[15])
     rest, stored = corpus.layout_inputs(a)
     lay = BL.block_layout(rest, stored)
     assert torch.equal(lay[0], got.block_base)
     assert torch.equal(lay[1], got.pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,stride,btype", [
+    ("text", None, None), ("text", 1, None), ("periodic", 1, None),
+    ("mixed", None, 0)])
+def test_pack_words_kernel_4mb_shard_repeats(cuda, kind, stride, btype):
+    """A 4 MB shard, 1,024 units: more than the card holds at once, so
+    units wait on the look-back of units that started before them. The
+    kernel equals the plain version and itself over 50 calls: with the
+    encoder's stride; with stride 1 on text (more entries than NSUB: the
+    overflow flag); with stride 1 on periodic data (every Huffman token an
+    entry, NSUB not reached); with every block stored (no entry)."""
+    n = 4 << 20
+    x = torch.from_numpy(corpus.sample(kind, n, seed=3)).to(cuda)
+    kw = {"_test_stride": stride} if stride else {}
+    if btype is not None:
+        kw["force_btype"] = btype
+    _, _, a, _ = corpus.block_stage_inputs(x, n, False, **kw)["pack_words"]
+    assert n // PW.UNIT > PW.resident_units(cuda)
+    first = _same_pack(a[:14], a[14], a[15])
+    for _ in range(50):
+        got = PW.pack_words(*a)
+        for field in first._fields:
+            assert torch.equal(getattr(got, field),
+                               getattr(first, field)), field
+    chosen, blk, huff = a[1], a[4], a[6]
+    n_tok_h = int((chosen & huff[blk].repeat_interleave(32768)).sum())
+    n_ent = int((first.sub_blk >= 0).sum())
+    if stride == 1 and kind == "text":
+        assert bool(first.sub_overflow) and n_ent == n // 64 < n_tok_h
+    elif stride == 1:
+        assert not bool(first.sub_overflow) and n_ent == n_tok_h > 0
+    elif btype == 0:
+        assert n_tok_h == n_ent == 0 and not bool(first.sub_overflow)
+    else:
+        assert 0 < n_ent <= n // 64 and not bool(first.sub_overflow)
 
 
 @pytest.mark.cuda

@@ -3,11 +3,13 @@
 integer: exact equality, bit for bit."""
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from deflate_compression_tpu.core import lz77 as jlz77
 from deflate_compression_tpu.format import constants as C
 from deflate_compression_tpu.format import deflate as jd
 from deflate_compression_tpu.models import codec as jcodec
@@ -85,6 +87,29 @@ def test_encode_shard_forced_btype_matches_jax(jax_encode, force_btype):
 def test_encode_shard_test_stride_overflow_matches_jax(jax_encode):
     _, got = _check_case(jax_encode, "text", S, S, True, _test_stride=1)
     assert bool(got["sub_overflow"])
+
+
+@pytest.mark.parametrize("kind", ["text", "cpp", "random", "periodic",
+                                  "zeros", "rgb", "mixed"])
+def test_sub_stride_from_tile_histograms_matches_jax(jax_encode, kind):
+    """The decode entries' stride, which encode_shard now sizes from the
+    tile histograms (a tile's chosen positions are its litlen counts'
+    sum), equals the JAX encoder's: its Huffman tokens counted from its
+    own tokens and blocks."""
+    data, want = jax_encode(kind, S, S, True)
+    tok = jax.jit(jlz77.tokenize, static_argnames=("num_candidates", "lazy"))(
+        jnp.asarray(data), jnp.int32(S), num_candidates=32, lazy=True)
+    chosen = np.asarray(tok["chosen"])
+    nb = int(want["n_blocks"])
+    starts = want["block_out_start"][:nb]
+    ends = np.append(starts[1:], S)
+    n_tok_h = sum(int(chosen[a:b].sum()) for a, b, bt in
+                  zip(starts, ends, want["btype"][:nb]) if bt != 0)
+    nsub, NB = S // 64, S // 32768
+    jax_stride = max((n_tok_h + nsub - NB - 1) // (nsub - NB), 1)
+    args = corpus.block_stage_inputs(torch.from_numpy(data), S,
+                                     True)["pack_words"][2]
+    assert int(args[13]) == jax_stride
 
 
 def test_encode_shard_17_tiles_matches_jax(jax_encode):

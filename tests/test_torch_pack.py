@@ -8,15 +8,23 @@ are held against the plain versions, exactly:
     kernel's tree order (warp levels, then the warps' totals, chunks of
     the CTA's width in turn), against `block_layout_ref` and the serial
     `layout_model` of tests/test_torch_block_stage.py;
-  * csrc/pack_words.cu: the items in closed form from the staged tables;
-    the count pass (units of 4,096 positions, header row sums, the tiles'
-    prefix, T_b, rest, the scan, each tile's first bit); the write pass
-    (each unit's first bit from its tile's, 16 positions a thread, the
-    in-unit scan, each thread's run into the
-    unit's window, the window's flush, header rows 11 slots a lane, the
-    EOB, the tail, stored bytes four to a word), with every word the
-    kernel stores (not ORs) checked to be touched by no other writer,
-    against `pack_words_ref` on encoder shards and synthetic ones.
+  * csrc/pack_words.cu, one pass: the items in closed form from the
+    staged tables; each unit's aggregate (units of 4,096 positions: its
+    map of p mod 8 with the block start's EOB, header bits, pad rule and
+    stored bytes, its Huffman tokens, whether it starts a block); the
+    decoupled look-back in several random orders of the units' steps
+    (tickets in order, a few to 80 units running at once, a unit waiting
+    while a status word of its batch is unwritten), each unit's prefix
+    (bit position, Huffman tokens, entries, whether its block has had a
+    Huffman token) held equal to the serial fold; then each unit's writes
+    from its prefix: the block start's EOB, header row (11 slots a lane),
+    base, pad and stored bytes (four to a word), the in-unit scan, each
+    thread's run into the unit's window from bit 0 and the window's flush
+    shifted by the unit's first bit mod 32, T_b, the
+    decode entries at each thread's first rank in closed form, the last
+    unit's EOB, tail and unused slots; every word the kernel stores (not
+    ORs) checked to be touched by no other writer; against
+    `pack_words_ref` on encoder shards and synthetic ones.
 """
 import numpy as np
 import pytest
@@ -269,85 +277,296 @@ def or_bits(words: np.ndarray, off: np.ndarray, v: np.ndarray,
         np.bitwise_or.at(words, j[ok], x[ok])
 
 
-def pack_model(args, final: bool, num_words: int) -> dict:
-    """csrc/pack_words.cu in numpy (see the module's docstring)."""
-    (data, chosen, length, dist, blk, start, huff, sto, blen, ll_tab, d_tab,
-     hdr_lo, hdr_nbs) = [np.asarray(a) for a in args]
-    S = data.shape[0]
-    NB, NU = S // TILE, S // UNIT
-    v, w = items_model(data, chosen, length, dist, blk, huff, ll_tab, d_tab)
+# ------------------------------------------- the look-back, as run
 
-    # count pass: the units' widths, the header rows', the last CTA
-    unit_bits = w.reshape(NU, UNIT).sum(1)
-    hdr_bits = hdr_nbs.sum(1)
-    tile_bits = unit_bits.reshape(NB, UNIT_PER_TILE).sum(1)
-    P = np.concatenate([[0], np.cumsum(tile_bits)])     # the tiles' prefix
-    n_blocks = int(blk[-1]) + 1
+def mult_below(x: int, stride: int) -> int:
+    """ceil(x / stride): the multiples of the stride in [0, x)."""
+    return -(-x // stride)
+
+
+def advance(st, agg, stride: int):
+    """The kernel's `advance`: the prefix state (p, c, e, t) after a unit
+    whose aggregate is (map, h, starts)."""
+    p, c, e, t = st
+    m, h, starts = agg
+    t0 = False if starts else t
+    extra = h > 0 and not t0 and c % stride != 0
+    e += mult_below(c + h, stride) - mult_below(c, stride) + int(extra)
+    return (p + apply(m, p), c + h, e, t0 or h > 0)
+
+
+ZERO = (0, 0, 0, False)
+SEG_ID = (IDENTITY, 0, False, False)
+
+
+def seg_compose(f, g):
+    """pack_words.cu's Seg `compose`: f, then g, each (map, Huffman tokens,
+    a block starts among them, a Huffman token after the last start or
+    among them if none)."""
+    return (compose(f[0], g[0]), f[1] + g[1], f[2] or g[2],
+            g[3] if g[2] else f[3] or g[3])
+
+
+LOOK = 4                        # units a lane of the look-back holds
+ROUND = 32 * LOOK               # status words a round trip
+
+
+def fold_model(st, units, incl, stride: int):
+    """pack_words.cu's `fold`: the state after the units of one round
+    (at most ROUND in order, each (status, aggregate, unit)) from the
+    state st before them. A unit whose inclusive prefix is published
+    (status 2) restarts the fold after the last such; each lane composes
+    its LOOK consecutive units in order, the lanes' elements are scanned
+    as the warp does (Hillis-Steele, `o` = 1, 2, 4, 8, 16); each lane then
+    walks its units from its exclusive prefix for their block-first
+    entries; the multiples of the stride telescope."""
+    k0 = 0
+    for i, (status, _, j) in enumerate(units):
+        if status == 2:
+            st, k0 = incl[j], i + 1
+    lanes = [[(m, h, starts, h > 0) for i, (_, (m, h, starts), _) in
+              enumerate(units) if i >= k0 and i // LOOK == lane]
+             for lane in range(32)]
+    e = []
+    for lane in lanes:
+        x = SEG_ID
+        for g in lane:
+            x = seg_compose(x, g)
+        e.append(x)
+    inc = list(e)
+    o = 1
+    while o < 32:
+        inc = [seg_compose(inc[i - o], inc[i]) if i >= o else inc[i]
+               for i in range(32)]
+        o *= 2
+    p, c, ee, t = st
+    n_extra = 0
+    for i, lane in enumerate(lanes):
+        ex = inc[i - 1] if i else SEG_ID
+        ci = c + ex[1]
+        ti = ex[3] if ex[2] else t or ex[3]
+        for m, h, starts, _ in lane:
+            t0 = False if starts else ti
+            n_extra += h > 0 and not t0 and ci % stride != 0
+            ci += h
+            ti = t0 or h > 0
+    tot = inc[31]
+    c1 = c + tot[1]
+    return (p + apply(tot[0], p), c1,
+            ee + mult_below(c1, stride) - mult_below(c, stride) + n_extra,
+            tot[3] if tot[2] else t or tot[3])
+
+
+def look_back_model(aggs, stride: int, rng, resident: int) -> list:
+    """Each unit's prefix state as the kernel's look-back finds it, in one
+    random order of the units' steps. Units take tickets in order, at most
+    `resident` of them running at once; a running unit publishes its
+    aggregate (unit 0 its inclusive prefix), then looks back: ROUND status
+    words at a time back to the nearest inclusive prefix, waiting while a
+    word of that round is unwritten; then, in a step of its own, it folds
+    the units between, ROUND at a time, from their words read again as
+    they are then (some may have become inclusive prefixes); then it
+    publishes its inclusive prefix. Returns the states and the aggregates the folds
+    applied."""
+    nu = len(aggs)
+    status = [0] * nu
+    incl = [None] * nu
+    excl = [None] * nu
+    found = {}                              # u -> (v0, its state)
+    started, done, running = 0, 0, []
+    applied = [0]
+
+    def fold_from(u, v0, st, words):
+        for j0 in range(v0 + 1, u, ROUND):
+            units = [(words[j], aggs[j], j)
+                     for j in range(j0, min(j0 + ROUND, u))]
+            applied[0] += sum(w == 1 for w, _, _ in units)
+            st = fold_model(st, units, incl, stride)
+        return st
+
+    def try_look_back(u):
+        hi = u - 1
+        while True:
+            rnd = [j for j in range(hi, hi - ROUND, -1) if j >= 0]
+            if any(status[j] == 0 for j in rnd):
+                return None                 # a lane spins
+            inc = [j for j in rnd if status[j] == 2]
+            if inc:
+                v0 = max(inc)
+                break
+            hi -= ROUND
+        found[u] = (v0, incl[v0])           # folded in a later step
+        return None
+
+    while done < nu:
+        if started < nu and len(running) < resident and (
+                not running or rng.random() < 0.3):
+            running.append(started)
+            started += 1
+            continue
+        u = running[int(rng.integers(len(running)))]
+        if status[u] == 0 and u > 0:
+            status[u] = 1
+            continue
+        if u in found:
+            v0, st = found.pop(u)
+            st = fold_from(u, v0, st, status)
+        else:
+            st = ZERO if u == 0 else try_look_back(u)
+        if st is None:
+            continue
+        excl[u] = st
+        incl[u] = advance(st, aggs[u], stride)
+        status[u] = 2
+        running.remove(u)
+        done += 1
+    return excl, applied[0]
+
+
+def unit_aggregates(args, w, tok_h):
+    """Each unit's aggregate as the kernel builds it before its look-back:
+    its map of p mod 8 (the block's start: the previous EOB, the header
+    without the EOB, a stored block's pad rule and bytes; the unit's token
+    bits; the last unit's EOB), its Huffman tokens, whether it starts a
+    block; and per unit (starts, previous EOB, header bits)."""
+    (_, _, _, _, blk, start, _, sto, blen, _, _, _, hdr_nbs) = args[:13]
+    S = w.shape[0]
+    NU = S // UNIT
+    W = w.reshape(NU, UNIT).sum(1)
+    h = tok_h.reshape(NU, UNIT).sum(1)
+    hs = hdr_nbs[:, :PW.SLOT_EOB].sum(1)
+    aggs, info = [], []
+    for u in range(NU):
+        tile = u // UNIT_PER_TILE
+        b = int(blk[tile])
+        starts = u % UNIT_PER_TILE == 0 and int(start[b]) == tile
+        c, sk = int(W[u]), (0, 0)
+        eprev = int(hdr_nbs[b - 1, PW.SLOT_EOB]) if starts and b > 0 else 0
+        if starts:
+            c += eprev + int(hs[b]) + (8 * int(blen[b]) if sto[b] else 0)
+            if sto[b]:
+                sk = (1, (5 - eprev) & 7)
+        if u == NU - 1:
+            c += int(hdr_nbs[b, PW.SLOT_EOB])
+        aggs.append(((c, *sk), int(h[u]), starts))
+        info.append((b, starts, eprev, int(hs[b]), int(W[u])))
+    return aggs, info
+
+
+def pack_model(args, final: bool, num_words: int, orders=3) -> dict:
+    """csrc/pack_words.cu in numpy (see the module's docstring): the
+    look-back's prefix states, the same in `orders` random orders and
+    equal to the serial fold; then each unit's writes from its state."""
+    (data, chosen, length, dist, blk, start, huff, sto, blen, ll_tab, d_tab,
+     hdr_lo, hdr_nbs) = [np.asarray(a) for a in args[:13]]
+    stride = min(max(int(args[13]), 1), 1 << 30)
+    S = data.shape[0]
+    NB, NU, NSUB = S // TILE, S // UNIT, S // 64
+    v, w = items_model(data, chosen, length, dist, blk, huff, ll_tab, d_tab)
+    tok_h = chosen & np.repeat(huff[blk], TILE)
+    aggs, info = unit_aggregates(
+        (data, chosen, length, dist, blk, start, huff, sto, blen, ll_tab,
+         d_tab, hdr_lo, hdr_nbs), w, tok_h)
+    serial = [ZERO]
+    for agg in aggs:
+        serial.append(advance(serial[-1], agg, stride))
+    rng = np.random.default_rng(S + stride)
+    applied = 0
+    for _ in range(orders):
+        got, n = look_back_model(aggs, stride, rng, int(rng.integers(2, 80)))
+        assert got == serial[:-1]
+        applied += n
+    assert applied > 0 or NU < 64       # the aggregates' path ran
+    p_end, _, n_sel, _ = serial[-1]
+
+    out = Words(num_words)
+    base = np.full(NB, p_end, np.int64)       # unused buckets: p_end
+    pad = np.zeros(NB, np.int64)
     tbits = np.zeros(NB, np.int64)
-    for b in range(n_blocks):
-        end = start[b + 1] if b + 1 < n_blocks else NB
-        tbits[b] = P[end] - P[start[b]]
-    rest = hdr_bits + tbits + np.where(sto, 8 * blen, 0)
-    base, pad, p_end = layout_scan_model(rest, sto, THREADS)
-    tok = base + hdr_bits - hdr_nbs[:, PW.SLOT_EOB] + pad
-    tile_base = tok[blk] + P[:-1] - P[start[blk]]
-    # write pass: a unit's first bit from its tile's and the units before
-    ub_blk = blk[np.arange(NU) // UNIT_PER_TILE]
-    in_tile = unit_bits.reshape(NB, UNIT_PER_TILE)
-    unit_base = (tile_base[:, None] + np.cumsum(in_tile, 1)
-                 - in_tile).reshape(NU)
+    ent = np.stack([np.full(NSUB, -1), np.full(NSUB, PW.NO_POS),
+                    np.full(NSUB, -1)]).astype(np.int64)
+    wt = w.reshape(NU, THREADS, PER)
+    ht = tok_h.reshape(NU, THREADS, PER)
+    for u in range(NU):
+        b, starts, eprev, hs, W = info[u]
+        p, c, e, t = serial[u]
+        ub = p
+        if starts:
+            bs = p + eprev
+            pd = (5 - bs) & 7 if sto[b] else 0
+            base[b], pad[b] = bs, pd
+            ub = bs + hs + pd
+            # the header row: 11 slots a lane, offsets by a warp scan
+            wid = hdr_nbs[b, :PW.SLOT_EOB].copy()
+            wid[PW.SLOT_PAD] = pd
+            lane_sum = np.add.reduceat(wid, np.arange(0, PW.SLOT_EOB, H_LANE))
+            lane_ex = np.cumsum(lane_sum) - lane_sum
+            out.runs(bs + lane_ex, bs + lane_ex + lane_sum)
+            offs = bs + np.cumsum(wid) - wid
+            lo = hdr_lo[b, :PW.SLOT_EOB] & 0xFFFFFFFF
+            or_bits(out.words, offs, lo & ((1 << np.minimum(wid, 32)) - 1),
+                    wid)
+            if b > 0:                       # the previous block's EOB
+                out.runs(p, p + eprev)
+                or_bits(out.words, np.array([p]),
+                        np.array([hdr_lo[b - 1, PW.SLOT_EOB] & 0xFFFFFFFF
+                                  & ((1 << min(eprev, 32)) - 1)]),
+                        np.array([eprev]))
+            if sto[b] and blen[b] > 0:
+                n = min(int(blen[b]), TILE)
+                byte0 = int(bs + 3 + pd + 32) >> 3
+                g0, g1 = byte0 >> 2, (byte0 + n - 1) >> 2
+                g = np.arange(g0, g1 + 1)
+                out.touch(g, (g > g0) & (g < g1))
+                by = np.zeros(4 * (g1 - g0 + 1), np.uint64)
+                src = data[start[b] * TILE:start[b] * TILE + n]
+                by[byte0 - 4 * g0:byte0 - 4 * g0 + n] = src
+                x = np.bitwise_or.reduce(
+                    by.reshape(-1, 4) << (np.arange(4, dtype=np.uint64) * 8),
+                    1)
+                ok = g < num_words
+                np.bitwise_or.at(out.words, g[ok], x[ok])
+        # the items' offsets: the CTA scan, then each thread's run
+        t_sum = wt[u].sum(1)
+        t_ex = np.cumsum(t_sum) - t_sum
+        o = (ub + t_ex[:, None] + np.cumsum(wt[u], 1) - wt[u]).reshape(UNIT)
+        q = u * UNIT + np.arange(UNIT)
+        or_bits(out.words, o, v[q], w[q])
+        tbits[b] += W
+        if W > 0:   # the unit's window from bit 0, out shifted by ub mod 32
+            win = Words(-(-W // 32) + 1)
+            win.runs(t_ex, t_ex + t_sum)
+            win.check()
+            w0 = ub >> 5
+            nout = ((ub & 31) + W + 31) >> 5
+            i = np.arange(nout)
+            out.touch(w0 + i, (i > 0) & (i < nout - 1))
+        # the entries: each thread's first rank in closed form
+        h_t = ht[u].sum(1)
+        if h_t.sum() > 0:
+            t0 = False if starts else t
+            extra = not t0 and c % stride != 0
+            hx = np.cumsum(h_t) - h_t
+            c0 = c + hx
+            r0 = (e + (-(-c0 // stride)) - mult_below(c, stride)
+                  + (extra & (hx > 0)))
+            cs = c0[:, None] + np.cumsum(ht[u], 1) - ht[u]
+            sel = ht[u] & ((cs % stride == 0) | (extra & (cs == c)))
+            rank = (r0[:, None] + np.cumsum(sel, 1) - sel)[sel]
+            keep = rank < NSUB
+            ent[:, rank[keep]] = np.stack([
+                o.reshape(THREADS, PER)[sel], q.reshape(THREADS, PER)[sel],
+                np.full(int(sel.sum()), b)])[:, keep]
+    # the last unit: the last EOB, the tail
+    b, _, _, _, W = info[-1]
+    e0 = int(p_end - hdr_nbs[b, PW.SLOT_EOB])
+    ew = int(hdr_nbs[b, PW.SLOT_EOB])
+    out.runs(e0, e0 + ew)
+    or_bits(out.words, np.array([e0]),
+            np.array([hdr_lo[b, PW.SLOT_EOB] & 0xFFFFFFFF
+                      & ((1 << min(ew, 32)) - 1)]), np.array([ew]))
     sf_pad = (5 - p_end) & 7
     total = p_end if final else p_end + 3 + sf_pad + 32
-
-    # write pass: units
-    out = Words(num_words)
-    wt = w.reshape(NU, THREADS, PER)
-    t_sum = wt.sum(2)
-    t_ex = np.cumsum(t_sum, 1) - t_sum                 # the CTA scan
-    pos_ex = (t_ex[:, :, None] + np.cumsum(wt, 2) - wt).reshape(NU, UNIT)
-    off_pos = (unit_base[:, None] + pos_ex).reshape(S)
-    for u in np.flatnonzero(huff[ub_blk] & (unit_bits > 0)):
-        ub, total_u = int(unit_base[u]), int(unit_bits[u])
-        w0 = ub >> 5
-        nwin = ((ub + total_u - 1) >> 5) - w0 + 1
-        win = Words(nwin)                           # the shared window
-        r0 = (ub & 31) + t_ex[u]
-        win.runs(r0, r0 + t_sum[u])
-        win.check()
-        i = np.arange(nwin)
-        out.touch(w0 + i, (i > 0) & (i < nwin - 1))
-    or_bits(out.words, off_pos, v, w)
-
-    # write pass: blocks (header rows, EOB, tail, stored bytes)
-    for b in range(NB):
-        wid = hdr_nbs[b, :PW.SLOT_EOB].copy()
-        wid[PW.SLOT_PAD] = pad[b]
-        lane_sum = np.add.reduceat(wid, np.arange(0, PW.SLOT_EOB, H_LANE))
-        lane_ex = np.cumsum(lane_sum) - lane_sum
-        out.runs(base[b] + lane_ex, base[b] + lane_ex + lane_sum)
-        offs = base[b] + np.cumsum(wid) - wid
-        lo = hdr_lo[b, :PW.SLOT_EOB] & 0xFFFFFFFF
-        or_bits(out.words, offs, lo & ((1 << np.minimum(wid, 32)) - 1),
-                wid)
-        ew = int(hdr_nbs[b, PW.SLOT_EOB])
-        e0 = int(tok[b] + tbits[b])
-        out.runs(e0, e0 + ew)
-        or_bits(out.words, np.array([e0]),
-                np.array([hdr_lo[b, PW.SLOT_EOB] & 0xFFFFFFFF
-                          & ((1 << min(ew, 32)) - 1)]), np.array([ew]))
-        if sto[b] and blen[b] > 0:
-            n = min(int(blen[b]), TILE)
-            byte0 = int(base[b] + 3 + pad[b] + 32) >> 3
-            g0, g1 = byte0 >> 2, (byte0 + n - 1) >> 2
-            g = np.arange(g0, g1 + 1)
-            out.touch(g, (g > g0) & (g < g1))
-            by = np.zeros(4 * (g1 - g0 + 1), np.uint64)
-            src = data[start[b] * TILE:start[b] * TILE + n]
-            by[byte0 - 4 * g0:byte0 - 4 * g0 + n] = src
-            x = np.bitwise_or.reduce(
-                by.reshape(-1, 4) << (np.arange(4, dtype=np.uint64) * 8), 1)
-            ok = g < num_words
-            np.bitwise_or.at(out.words, g[ok], x[ok])
     if not final:
         t0 = int(p_end + 3 + sf_pad)
         out.runs(t0, t0 + 32)
@@ -356,7 +575,8 @@ def pack_model(args, final: bool, num_words: int) -> dict:
     out.check()
     return {"words": out.words.astype(np.int64), "total_bits": total,
             "block_base": base, "pad": pad, "token_bits": tbits,
-            "off_pos": off_pos}
+            "sub_bit": ent[0], "sub_out": ent[1], "sub_blk": ent[2],
+            "sub_overflow": n_sel > NSUB}
 
 
 def assert_model_matches_plain(args, final: bool, num_words: int):
@@ -392,7 +612,7 @@ def test_pack_model_matches_plain_on_encoder_shards(name):
     _, _, a, k = got["pack_words"]
     assert not k
     assert a[-2] == final and a[-1] == td.out_words(S)
-    assert_model_matches_plain([t.numpy() for t in a[:13]], final, a[-1])
+    assert_model_matches_plain([t.numpy() for t in a[:14]], final, a[-1])
 
 
 @pytest.mark.parametrize("name", corpus.PACK_CASES)
