@@ -11,6 +11,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.logging_util import spanned
+
 ADLER_MOD = 65521
 # largest n with n*(n+1)/2*255 + (n+1)*65520 < 2^32 (zlib's NMAX)
 ADLER_NMAX = 5552
@@ -31,6 +33,7 @@ def adler32_np(data: np.ndarray, value: int = 1) -> int:
     return ((b << 16) | a) & 0xFFFFFFFF
 
 
+@spanned("checksum.adler32")
 def adler32_torch(data: torch.Tensor, valid_len) -> torch.Tensor:
     """Adler-32 of data[:valid_len] (u8[S] tensor) as an int64 0-d tensor
     on data's device; port of the JAX package's `adler32_jax`.

@@ -44,6 +44,7 @@ from ..ops import build_tables as BT
 from ..ops import copy_sources as CS
 from ..ops import decode_symbols as DS
 from ..ops.lut_gather import lut_gather
+from ..utils.logging_util import spanned
 
 PhaseA = BT.PhaseA
 _tables = BT._tables
@@ -87,6 +88,7 @@ def _words_i32(w: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ phase A
 
+@spanned("decode.phase_a")
 def phase_a(w: torch.Tensor, blk_bit, blk_btype, n_blocks) -> PhaseA:
     """Block headers and the phase-B tables (tpu_inflate.py:352-454): the
     build_tables kernel on a CUDA tensor, its plain version on a CPU
@@ -106,6 +108,7 @@ def block_flags(a: PhaseA) -> torch.Tensor:
     return flags
 
 
+@spanned("decode.lanes")
 def lanes(a: PhaseA, sub_bit, sub_out, sub_blk, n_subs, blk_end) -> Lanes:
     """Per-lane start, end and status (tpu_inflate.py:462-470). Each lane
     reads its block's flags (Huffman, bad) by the LUT gather kernel."""
@@ -139,6 +142,7 @@ def phase_b_args(p: Plan, out_size: int, max_dist) -> tuple:
             4 * S + 64)
 
 
+@spanned("decode.phase_b")
 def phase_b(p: Plan, out_size: int, max_dist) -> DS.SymbolResult:
     """Token decode of every lane: the decode_symbols kernel on a CUDA
     tensor, its plain version on a CPU tensor."""
@@ -147,6 +151,7 @@ def phase_b(p: Plan, out_size: int, max_dist) -> DS.SymbolResult:
 
 # ------------------------------------------------------------------ phase C
 
+@spanned("decode.phase_c")
 def phase_c(p: Plan, b: DS.SymbolResult, out_size: int, prefix=None,
             prefix_len=None) -> dict:
     """Output bytes from the tokens (tpu_inflate.py:600-841), resolved by
@@ -165,6 +170,7 @@ def phase_c(p: Plan, b: DS.SymbolResult, out_size: int, prefix=None,
 
 # -------------------------------------------------------------- entry points
 
+@spanned("decode.plan")
 def plan(comp_words, blk_bit, blk_out, blk_btype, n_blocks, sub_bit,
          sub_out, sub_blk, n_subs, valid_out, blk_end=None) -> Plan:
     """Move a decode's index to the words' device, run phase A and set up
@@ -190,6 +196,7 @@ def plan(comp_words, blk_bit, blk_out, blk_btype, n_blocks, sub_bit,
     return Plan(w, blk_bit, blk_out, blk_end, valid_out, a, ln)
 
 
+@spanned("decode.blocks")
 def decode_blocks(comp_words, blk_bit, blk_out, blk_btype, n_blocks,
                   sub_bit, sub_out, sub_blk, n_subs, valid_out,
                   out_size: int, prefix=None, prefix_len=None,
@@ -225,6 +232,7 @@ def decode_blocks(comp_words, blk_bit, blk_out, blk_btype, n_blocks,
                    prefix_len)
 
 
+@spanned("decode.flat_batch")
 def flat_batch(comp_words, blk_bit, blk_out, blk_btype, n_blocks, sub_bit,
                sub_out, sub_blk, valid_out, out_size: int) -> dict:
     """decode_blocks arguments of one flat decode of B shards (see
@@ -265,6 +273,7 @@ def flat_batch(comp_words, blk_bit, blk_out, blk_btype, n_blocks, sub_bit,
                 n_subs=fsb.numel(), valid_out=B * S, blk_end=fe.reshape(-1))
 
 
+@spanned("decode.batch")
 def decode_blocks_batch(comp_words, blk_bit, blk_out, blk_btype, n_blocks,
                         sub_bit, sub_out, sub_blk, valid_out,
                         out_size: int, max_dist=C.WINDOW_SIZE):

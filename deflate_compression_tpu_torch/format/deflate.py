@@ -31,6 +31,7 @@ from ..core import huffman, lz77
 from ..core.cost import block_plan
 from ..core import scans
 from ..device import pick_device
+from ..utils.logging_util import span, spanned
 from ..ops.huffman_codes import huffman_codes
 from ..ops.pack_words import (BLOCK, H_ITEMS as _H_ITEMS, RLE_SLOTS as
                               _RLE_SLOTS, SLOT_EOB as _SLOT_EOB,
@@ -150,10 +151,11 @@ def _tree_rle(comb: torch.Tensor, total: torch.Tensor):
     return sym, evals, ebits
 
 
+@spanned("encode.shard")
 def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
                  num_candidates: int = 32, lazy: bool = True,
                  force_btype: int | None = None,
-                 _test_stride: int | None = None, _marks=None):
+                 _test_stride: int | None = None):
     """Encode one shard into a DEFLATE bitstream, on data's device.
 
     Args:
@@ -166,8 +168,9 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
       force_btype: None for cost-based selection, or BTYPE_STORED / FIXED /
         DYNAMIC to force every block's type.
       _test_stride: test seam forcing the sub-entry stride.
-      _marks: profiling seam: called with each stage's name as the stage
-        ends (profile_encode times the stages with it).
+
+    Each stage runs in a span "encode.<stage>" inside "encode.shard"
+    (utils/logging_util.py), which a running torch profiler records.
 
     Returns dict: words (int64[OW] holding u32 words), total_bits, and the
     per-block stats and decode index of the JAX encoder.
@@ -185,209 +188,209 @@ def encode_shard(data: torch.Tensor, valid_len: int, final: bool,
     OUT_WORDS = out_words(S)
     i64 = {"dtype": torch.int64, "device": dev}
     K = _consts(dev)
-    mark = _marks or (lambda stage: None)
 
     data = data.to(torch.uint8)
     b_idx = torch.arange(NB, device=dev)
     LB_micro = max((valid_len - 1) // BLOCK, 0)
 
     # ------------------------------------------------------------- LZ77
-    tok = lz77.tokenize(data, valid_len, num_candidates=num_candidates,
-                        lazy=lazy)
-    mark("tokenize")
-    chosen, length, dist = tok["chosen"], tok["length"], tok["dist"]
-    is_match = chosen & (length >= C.MIN_MATCH)
+    with span("encode.tokenize"):
+        tok = lz77.tokenize(data, valid_len, num_candidates=num_candidates,
+                            lazy=lazy)
+    with span("encode.token_fields"):
+        chosen, length, dist = tok["chosen"], tok["length"], tok["dist"]
+        is_match = chosen & (length >= C.MIN_MATCH)
 
-    # each position's symbols; masked positions map to the dropped class
-    ll_sym_t = torch.where(chosen, torch.where(
-        is_match, len_fields(length)[0], data.long()), C.NUM_LITLEN)
-    d_sym_t = torch.where(is_match, dist_fields(dist)[0], C.NUM_DIST)
-    mark("token fields")
+        # each position's symbols; masked positions map to the dropped class
+        ll_sym_t = torch.where(chosen, torch.where(
+            is_match, len_fields(length)[0], data.long()), C.NUM_LITLEN)
+        d_sym_t = torch.where(is_match, dist_fields(dist)[0], C.NUM_DIST)
 
     # --------------------------------------------------- block planning
-    # per-tile histograms (the tile_histogram kernel)
-    ll_freq_micro = huffman.histogram_rows(ll_sym_t.view(NB, BLOCK),
-                                           C.NUM_LITLEN)
-    d_freq_micro = huffman.histogram_rows(d_sym_t.view(NB, BLOCK),
-                                          C.NUM_DIST)
-    mark("tile histograms")
+    with span("encode.tile_histograms"):
+        # per-tile histograms (the tile_histogram kernel)
+        ll_freq_micro = huffman.histogram_rows(ll_sym_t.view(NB, BLOCK),
+                                               C.NUM_LITLEN)
+        d_freq_micro = huffman.histogram_rows(d_sym_t.view(NB, BLOCK),
+                                              C.NUM_DIST)
 
-    if force_btype == C.BTYPE_FIXED and NB > 1:
-        split = b_idx == 0           # fixed blocks carry no tree: one block
-    elif force_btype == C.BTYPE_STORED:
-        split = torch.ones(NB, dtype=torch.bool, device=dev)
-    elif NB > 1:
-        tile_bytes = (valid_len - b_idx * BLOCK).clamp(0, BLOCK)
-        split, _ = block_plan(ll_freq_micro, d_freq_micro, LB_micro + 1,
-                              tile_bytes, max_merge=MAX_MERGE)
-    else:
-        split = torch.ones(NB, dtype=torch.bool, device=dev)
-    mark("block_plan")
+    with span("encode.block_plan"):
+        if force_btype == C.BTYPE_FIXED and NB > 1:
+            # fixed blocks carry no tree: one block
+            split = b_idx == 0
+        elif force_btype == C.BTYPE_STORED:
+            split = torch.ones(NB, dtype=torch.bool, device=dev)
+        elif NB > 1:
+            tile_bytes = (valid_len - b_idx * BLOCK).clamp(0, BLOCK)
+            split, _ = block_plan(ll_freq_micro, d_freq_micro, LB_micro + 1,
+                                  tile_bytes, max_merge=MAX_MERGE)
+        else:
+            split = torch.ones(NB, dtype=torch.bool, device=dev)
 
-    blk_id_micro = torch.cumsum(split.long(), dim=0) - 1
-    LB = blk_id_micro[LB_micro]                  # last emitted coding block
-    b_emitted = b_idx <= LB
+    with span("encode.block_histograms"):
+        blk_id_micro = torch.cumsum(split.long(), dim=0) - 1
+        LB = blk_id_micro[LB_micro]          # last emitted coding block
+        b_emitted = b_idx <= LB
 
-    # start/end tile of each coding block (NB buckets, tail unused)
-    start_micro = torch.full((NB + 1,), NB, **i64).scatter_reduce(
-        0, torch.where(split, blk_id_micro, NB), b_idx, reduce="amin")[:NB]
-    end_micro = torch.cat([start_micro[1:],
-                           torch.full((1,), NB, **i64)]).clamp(max=NB)
-    start_micro_c = start_micro.clamp(max=NB - 1)
-    end_micro = torch.maximum(end_micro, start_micro_c + 1)
-    n_micros_b = end_micro - start_micro_c
-    start_pos_b = start_micro_c * BLOCK
-    end_pos_b = (end_micro * BLOCK).clamp(max=S)
+        # start/end tile of each coding block (NB buckets, tail unused)
+        start_micro = torch.full((NB + 1,), NB, **i64).scatter_reduce(
+            0, torch.where(split, blk_id_micro, NB), b_idx, reduce="amin")[:NB]
+        end_micro = torch.cat([start_micro[1:],
+                               torch.full((1,), NB, **i64)]).clamp(max=NB)
+        start_micro_c = start_micro.clamp(max=NB - 1)
+        end_micro = torch.maximum(end_micro, start_micro_c + 1)
+        n_micros_b = end_micro - start_micro_c
+        start_pos_b = start_micro_c * BLOCK
+        end_pos_b = (end_micro * BLOCK).clamp(max=S)
 
-    # ------------------------------------------------ histograms / trees
-    ll_freq = torch.zeros((NB, C.NUM_LITLEN), **i64).index_add_(
-        0, blk_id_micro, ll_freq_micro)
-    ll_freq[:, C.EOB] += b_emitted.long()
-    d_freq = torch.zeros((NB, C.NUM_DIST), **i64).index_add_(
-        0, blk_id_micro, d_freq_micro)
-    ll_freq_t = _force_two_codes(ll_freq)
-    d_freq_t = _force_two_codes(d_freq)
-
-    mark("block histograms")
-    # litlen and zero-padded dist alphabets share one batched build
-    d_freq_pad = torch.cat(
-        [d_freq_t, torch.zeros((NB, C.NUM_LITLEN - C.NUM_DIST), **i64)], 1)
-    both = huffman_codes(torch.cat([ll_freq_t, d_freq_pad], 0), TREE_LIMIT)
-    ll_len_dyn = both.lengths[:NB]
-    d_len_dyn = both.lengths[NB:, :C.NUM_DIST]
-    ll_rev_dyn = both.rev[:NB]
-    d_rev_dyn = both.rev[NB:, :C.NUM_DIST]
-    mark("huffman_codes 11-bit")
+        # ------------------------------------------------ histograms / trees
+        ll_freq = torch.zeros((NB, C.NUM_LITLEN), **i64).index_add_(
+            0, blk_id_micro, ll_freq_micro)
+        ll_freq[:, C.EOB] += b_emitted.long()
+        d_freq = torch.zeros((NB, C.NUM_DIST), **i64).index_add_(
+            0, blk_id_micro, d_freq_micro)
+        ll_freq_t = _force_two_codes(ll_freq)
+        d_freq_t = _force_two_codes(d_freq)
+    with span("encode.huffman_codes"):
+        # litlen and zero-padded dist alphabets share one batched build
+        d_freq_pad = torch.cat(
+            [d_freq_t, torch.zeros((NB, C.NUM_LITLEN - C.NUM_DIST), **i64)], 1)
+        both = huffman_codes(torch.cat([ll_freq_t, d_freq_pad], 0), TREE_LIMIT)
+        ll_len_dyn = both.lengths[:NB]
+        d_len_dyn = both.lengths[NB:, :C.NUM_DIST]
+        ll_rev_dyn = both.rev[:NB]
+        d_rev_dyn = both.rev[NB:, :C.NUM_DIST]
 
     # ------------------------------------------ tree description (RLE)
-    ar_ll = torch.arange(C.NUM_LITLEN, device=dev)
-    ar_d = torch.arange(C.NUM_DIST, device=dev)
-    hlit = (torch.where(ll_len_dyn > 0, ar_ll, 0).amax(1) + 1).clamp(min=257)
-    hdist = (torch.where(d_len_dyn > 0, ar_d, 0).amax(1) + 1).clamp(min=1)
-    total_lens = hlit + hdist
+    with span("encode.tree_rle"):
+        ar_ll = torch.arange(C.NUM_LITLEN, device=dev)
+        ar_d = torch.arange(C.NUM_DIST, device=dev)
+        hlit = (torch.where(ll_len_dyn > 0, ar_ll, 0).amax(1)
+                + 1).clamp(min=257)
+        hdist = (torch.where(d_len_dyn > 0, ar_d, 0).amax(1) + 1).clamp(min=1)
+        total_lens = hlit + hdist
 
-    t_idx = torch.arange(_RLE_SLOTS, device=dev).unsqueeze(0)
-    in_ll = t_idx < hlit.unsqueeze(1)
-    ll_idx = t_idx.clamp(0, C.NUM_LITLEN - 1).expand(NB, _RLE_SLOTS)
-    d_idx = (t_idx - hlit.unsqueeze(1)).clamp(0, C.NUM_DIST - 1)
-    comb = torch.where(in_ll, torch.gather(ll_len_dyn, 1, ll_idx),
-                       torch.gather(d_len_dyn, 1, d_idx))
-    comb = torch.where(t_idx < total_lens.unsqueeze(1), comb, -1)
+        t_idx = torch.arange(_RLE_SLOTS, device=dev).unsqueeze(0)
+        in_ll = t_idx < hlit.unsqueeze(1)
+        ll_idx = t_idx.clamp(0, C.NUM_LITLEN - 1).expand(NB, _RLE_SLOTS)
+        d_idx = (t_idx - hlit.unsqueeze(1)).clamp(0, C.NUM_DIST - 1)
+        comb = torch.where(in_ll, torch.gather(ll_len_dyn, 1, ll_idx),
+                           torch.gather(d_len_dyn, 1, d_idx))
+        comb = torch.where(t_idx < total_lens.unsqueeze(1), comb, -1)
 
-    rle_sym, rle_ev, rle_eb = _tree_rle(comb, total_lens)
-    rle_emitted = rle_sym >= 0
-    rle_sym_c = rle_sym.clamp(min=0)
-    mark("tree RLE")
+        rle_sym, rle_ev, rle_eb = _tree_rle(comb, total_lens)
+        rle_emitted = rle_sym >= 0
+        rle_sym_c = rle_sym.clamp(min=0)
 
-    clen_key = b_idx.unsqueeze(1) * C.NUM_CLEN + rle_sym_c
-    clen_freq = huffman.histogram(clen_key, NB * C.NUM_CLEN,
-                                  mask=rle_emitted).view(NB, C.NUM_CLEN)
-    mark("clen histogram")
-    clen_len, _, clen_rev = huffman_codes(_force_two_codes(clen_freq), 7)
-    mark("huffman_codes 7-bit")
+    with span("encode.clen_histogram"):
+        clen_key = b_idx.unsqueeze(1) * C.NUM_CLEN + rle_sym_c
+        clen_freq = huffman.histogram(clen_key, NB * C.NUM_CLEN,
+                                      mask=rle_emitted).view(NB, C.NUM_CLEN)
+    with span("encode.huffman_codes"):
+        clen_len, _, clen_rev = huffman_codes(_force_two_codes(clen_freq), 7)
 
-    lens_perm = clen_len[:, K["clen_order"]]
-    ar_c = torch.arange(C.NUM_CLEN, device=dev)
-    hclen = (torch.where(lens_perm > 0, ar_c, 0).amax(1) + 1).clamp(min=4)
+    with span("encode.bit_costs"):
+        lens_perm = clen_len[:, K["clen_order"]]
+        ar_c = torch.arange(C.NUM_CLEN, device=dev)
+        hclen = (torch.where(lens_perm > 0, ar_c, 0).amax(1) + 1).clamp(min=4)
 
-    # --------------------------------------------------------- bit costs
-    ll_extra_tot = (ll_freq[:, 257:286] * K["len_extra"]).sum(1)
-    d_extra_tot = (d_freq * K["dist_extra"]).sum(1)
-    dyn_payload = ((ll_freq * ll_len_dyn).sum(1) + ll_extra_tot
-                   + (d_freq * d_len_dyn).sum(1) + d_extra_tot)
-    rle_code_bits = torch.gather(clen_len, 1, rle_sym_c)
-    rle_bits_mat = torch.where(rle_emitted, rle_code_bits + rle_eb, 0)
-    tree_bits = 14 + 3 * hclen + rle_bits_mat.sum(1)
-    dyn_cost = 3 + tree_bits + dyn_payload
+        # --------------------------------------------------------- bit costs
+        ll_extra_tot = (ll_freq[:, 257:286] * K["len_extra"]).sum(1)
+        d_extra_tot = (d_freq * K["dist_extra"]).sum(1)
+        dyn_payload = ((ll_freq * ll_len_dyn).sum(1) + ll_extra_tot
+                       + (d_freq * d_len_dyn).sum(1) + d_extra_tot)
+        rle_code_bits = torch.gather(clen_len, 1, rle_sym_c)
+        rle_bits_mat = torch.where(rle_emitted, rle_code_bits + rle_eb, 0)
+        tree_bits = 14 + 3 * hclen + rle_bits_mat.sum(1)
+        dyn_cost = 3 + tree_bits + dyn_payload
 
-    fll, fdl = K["fixed_ll_len"], K["fixed_d_len"]
-    fix_cost = (3 + (ll_freq * fll).sum(1) + ll_extra_tot
-                + (d_freq * fdl).sum(1) + d_extra_tot)
+        fll, fdl = K["fixed_ll_len"], K["fixed_d_len"]
+        fix_cost = (3 + (ll_freq * fll).sum(1) + ll_extra_tot
+                    + (d_freq * fdl).sum(1) + d_extra_tot)
 
-    blen = (end_pos_b.clamp(max=valid_len) - start_pos_b).clamp(0, S)
-    sto_cost = 3 + 7 + 32 + 8 * blen
-    # stored blocks are single-tile only (LEN is 16-bit)
-    sto_cost = torch.where(n_micros_b == 1, sto_cost, 1 << 30)
+        blen = (end_pos_b.clamp(max=valid_len) - start_pos_b).clamp(0, S)
+        sto_cost = 3 + 7 + 32 + 8 * blen
+        # stored blocks are single-tile only (LEN is 16-bit)
+        sto_cost = torch.where(n_micros_b == 1, sto_cost, 1 << 30)
 
-    costs = torch.stack([sto_cost, fix_cost, dyn_cost], dim=1)
-    btype = torch.argmin(costs, dim=1)           # 0/1/2 == RFC BTYPE
-    if force_btype is not None:
-        btype = torch.full_like(btype, force_btype)
-    mark("bit costs")
+        costs = torch.stack([sto_cost, fix_cost, dyn_cost], dim=1)
+        btype = torch.argmin(costs, dim=1)           # 0/1/2 == RFC BTYPE
+        if force_btype is not None:
+            btype = torch.full_like(btype, force_btype)
 
-    # effective per-block code tables
-    use_dyn = (btype == C.BTYPE_DYNAMIC).unsqueeze(1)
-    ll_len_eff = torch.where(use_dyn, ll_len_dyn, fll)
-    d_len_eff = torch.where(use_dyn, d_len_dyn, fdl)
-    # one table word per symbol: reversed code | len << 16; a zero column
-    # at the end serves the masked symbol (NUM_LITLEN / NUM_DIST)
-    zcol = torch.zeros((NB, 1), **i64)
-    ll_tab = torch.cat([torch.where(use_dyn, ll_rev_dyn, K["fixed_ll_rev"])
-                        | (ll_len_eff << 16), zcol], 1)
-    d_tab = torch.cat([torch.where(use_dyn, d_rev_dyn, K["fixed_d_rev"])
-                       | (d_len_eff << 16), zcol], 1)
+    with span("encode.code_tables"):
+        # effective per-block code tables
+        use_dyn = (btype == C.BTYPE_DYNAMIC).unsqueeze(1)
+        ll_len_eff = torch.where(use_dyn, ll_len_dyn, fll)
+        d_len_eff = torch.where(use_dyn, d_len_dyn, fdl)
+        # one table word per symbol: reversed code | len << 16; a zero column
+        # at the end serves the masked symbol (NUM_LITLEN / NUM_DIST)
+        zcol = torch.zeros((NB, 1), **i64)
+        ll_tab = torch.cat([torch.where(use_dyn, ll_rev_dyn, K["fixed_ll_rev"])
+                            | (ll_len_eff << 16), zcol], 1)
+        d_tab = torch.cat([torch.where(use_dyn, d_rev_dyn, K["fixed_d_rev"])
+                           | (d_len_eff << 16), zcol], 1)
 
-    huff_b = (btype != C.BTYPE_STORED) & b_emitted
-    eob_tab = ll_tab[:, C.EOB]
-    eob_nbs = torch.where(huff_b, eob_tab >> 16, 0)
-    mark("code tables")
+        huff_b = (btype != C.BTYPE_STORED) & b_emitted
+        eob_tab = ll_tab[:, C.EOB]
+        eob_nbs = torch.where(huff_b, eob_tab >> 16, 0)
 
     # ------------------------------------------------------ header items
-    hdr_lo = torch.zeros((NB, _H_ITEMS), **i64)
-    hdr_nbs = torch.zeros((NB, _H_ITEMS), **i64)
-    is_dyn = btype == C.BTYPE_DYNAMIC
-    is_sto = btype == C.BTYPE_STORED
-    dyn_emit = b_emitted & is_dyn
-    sto_emit = b_emitted & is_sto
-    bfinal = (b_idx == LB) & final
-    hdr_lo[:, 0] = bfinal.long() | (btype << 1)
-    hdr_nbs[:, 0] = torch.where(b_emitted, 3, 0)
+    with span("encode.header_items"):
+        hdr_lo = torch.zeros((NB, _H_ITEMS), **i64)
+        hdr_nbs = torch.zeros((NB, _H_ITEMS), **i64)
+        is_dyn = btype == C.BTYPE_DYNAMIC
+        is_sto = btype == C.BTYPE_STORED
+        dyn_emit = b_emitted & is_dyn
+        sto_emit = b_emitted & is_sto
+        bfinal = (b_idx == LB) & final
+        hdr_lo[:, 0] = bfinal.long() | (btype << 1)
+        hdr_nbs[:, 0] = torch.where(b_emitted, 3, 0)
 
-    hdr_lo[:, 1] = (hlit - 257) | ((hdist - 1) << 5) | ((hclen - 4) << 10)
-    hdr_nbs[:, 1] = torch.where(dyn_emit, 14, 0)
+        hdr_lo[:, 1] = (hlit - 257) | ((hdist - 1) << 5) | ((hclen - 4) << 10)
+        hdr_nbs[:, 1] = torch.where(dyn_emit, 14, 0)
 
-    j19 = torch.arange(19, device=dev).unsqueeze(0)
-    hdr_lo[:, 2:21] = lens_perm
-    hdr_nbs[:, 2:21] = torch.where(
-        dyn_emit.unsqueeze(1) & (j19 < hclen.unsqueeze(1)), 3, 0)
+        j19 = torch.arange(19, device=dev).unsqueeze(0)
+        hdr_lo[:, 2:21] = lens_perm
+        hdr_nbs[:, 2:21] = torch.where(
+            dyn_emit.unsqueeze(1) & (j19 < hclen.unsqueeze(1)), 3, 0)
 
-    # RLE symbol + its extra bits as one <= 14-bit item per slot
-    rle_code = torch.gather(clen_rev, 1, rle_sym_c)
-    hdr_lo[:, 21:21 + _RLE_SLOTS] = rle_code | (rle_ev << rle_code_bits)
-    hdr_nbs[:, 21:21 + _RLE_SLOTS] = torch.where(
-        dyn_emit.unsqueeze(1) & rle_emitted, rle_code_bits + rle_eb, 0)
+        # RLE symbol + its extra bits as one <= 14-bit item per slot
+        rle_code = torch.gather(clen_rev, 1, rle_sym_c)
+        hdr_lo[:, 21:21 + _RLE_SLOTS] = rle_code | (rle_ev << rle_code_bits)
+        hdr_nbs[:, 21:21 + _RLE_SLOTS] = torch.where(
+            dyn_emit.unsqueeze(1) & rle_emitted, rle_code_bits + rle_eb, 0)
 
-    # stored: pad (filled after the layout), LEN/NLEN; payloads below
-    hdr_lo[:, _SLOT_LENNLEN] = blen | ((~blen & 0xFFFF) << 16)
-    hdr_nbs[:, _SLOT_LENNLEN] = torch.where(sto_emit, 32, 0)
+        # stored: pad (filled after the layout), LEN/NLEN; payloads below
+        hdr_lo[:, _SLOT_LENNLEN] = blen | ((~blen & 0xFFFF) << 16)
+        hdr_nbs[:, _SLOT_LENNLEN] = torch.where(sto_emit, 32, 0)
 
-    # EOB: last item of each block's row, offset set to the token end
-    hdr_lo[:, _SLOT_EOB] = eob_tab & 0x7FFF
-    hdr_nbs[:, _SLOT_EOB] = eob_nbs
-    mark("header items")
+        # EOB: last item of each block's row, offset set to the token end
+        hdr_lo[:, _SLOT_EOB] = eob_tab & 0x7FFF
+        hdr_nbs[:, _SLOT_EOB] = eob_nbs
 
     # ---------------------------------------- sub-block decode entries
-    # every `stride`-th Huffman token plus each block's first one, the
-    # stride chosen so the entries fit NSUB lanes; a tile's chosen
-    # positions are its litlen histogram's sum (the others map to the
-    # dropped symbol), so no position is read here: pack_words selects them
-    NSUB = S // 64
-    n_tok_h = (ll_freq_micro.sum(1) * huff_b[blk_id_micro]).sum()
-    stride = torch.div(n_tok_h + NSUB - NB - 1, NSUB - NB,
-                       rounding_mode="floor").clamp(min=1)
-    if _test_stride is not None:      # test seam: force sub_overflow
-        stride = torch.tensor(_test_stride, **i64)
-    n_tokens = ll_freq_micro.sum() + LB + 1
-    n_matches = ll_freq_micro[:, C.EOB + 1:].sum()
-    mark("sub-entry index")
+    with span("encode.sub_entries"):
+        # every `stride`-th Huffman token plus each block's first one, the
+        # stride chosen so the entries fit NSUB lanes; a tile's chosen
+        # positions are its litlen histogram's sum (the others map to the
+        # dropped symbol), so no position is read here: pack_words selects them
+        NSUB = S // 64
+        n_tok_h = (ll_freq_micro.sum(1) * huff_b[blk_id_micro]).sum()
+        stride = torch.div(n_tok_h + NSUB - NB - 1, NSUB - NB,
+                           rounding_mode="floor").clamp(min=1)
+        if _test_stride is not None:      # test seam: force sub_overflow
+            stride = torch.tensor(_test_stride, **i64)
+        n_tokens = ll_freq_micro.sum() + LB + 1
+        n_matches = ll_freq_micro[:, C.EOB + 1:].sum()
 
     # ------------ token items, layout, offsets, words, entries (1 launch)
-    # hdr_nbs's pad slot is 0 here: pack_words fills it in its own rows
-    pk = pack_words(data, chosen, length, dist, blk_id_micro, start_micro_c,
-                    huff_b, sto_emit, blen, ll_tab, d_tab, hdr_lo, hdr_nbs,
-                    stride, final, OUT_WORDS)
-    hdr_fixed = hdr_nbs.sum(1)              # without pad, with the EOB
-    mark("pack_words")
+    with span("encode.pack_words"):
+        # hdr_nbs's pad slot is 0 here: pack_words fills it in its own rows
+        pk = pack_words(data, chosen, length, dist, blk_id_micro,
+                        start_micro_c, huff_b, sto_emit, blen, ll_tab, d_tab,
+                        hdr_lo, hdr_nbs, stride, final, OUT_WORDS)
+        hdr_fixed = hdr_nbs.sum(1)              # without pad, with the EOB
     return {
         "words": pk.words,
         "total_bits": pk.total_bits,
@@ -422,11 +425,12 @@ def encode_shards(raw: bytes, shard_size: int, device: torch.device,
     host and encoded on `device`."""
     nsh = (len(raw) + shard_size - 1) // shard_size
     for s in range(nsh):
-        part = raw[s * shard_size:(s + 1) * shard_size]
-        buf = np.zeros(shard_size, dtype=np.uint8)
-        buf[:len(part)] = np.frombuffer(part, dtype=np.uint8)
-        yield encode_shard(torch.from_numpy(buf).to(device), len(part),
-                           s == nsh - 1, **options)
+        with span("codec.upload"):
+            part = raw[s * shard_size:(s + 1) * shard_size]
+            buf = np.zeros(shard_size, dtype=np.uint8)
+            buf[:len(part)] = np.frombuffer(part, dtype=np.uint8)
+            x = torch.from_numpy(buf).to(device)
+        yield encode_shard(x, len(part), s == nsh - 1, **options)
 
 
 def deflate_compress_bytes(raw: bytes, shard_size: int = 1 << 20,

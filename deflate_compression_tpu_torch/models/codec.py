@@ -28,7 +28,7 @@ from ..format import containers
 from ..format.deflate import encode_shard, encode_shards, shard_bytes
 from ..utils.config import DEFAULT_CONFIG, CodecConfig
 from ..utils.errors import DeflateError
-from ..utils.logging_util import LOGGER_NAME, MetricsRecorder
+from ..utils.logging_util import LOGGER_NAME, MetricsRecorder, span, spanned
 
 _LOG = logging.getLogger(f"{LOGGER_NAME}.models.codec")
 
@@ -64,6 +64,7 @@ class CompressStats:
         return "\n".join(lines) + "\n"
 
 
+@spanned("codec.self_check")
 def _self_check_shard(shard_bytes: bytes, total_bits: int,
                       original: bytes, shard_idx: int) -> None:
     """Replay one shard's substream against a 32 KB ring on the host right
@@ -112,39 +113,49 @@ class DeflateCodec:
                                num_candidates=cfg.num_candidates,
                                lazy=cfg.lazy, force_btype=cfg.force_btype)
         for s, r in enumerate(shards):
-            if bool(r["sub_overflow"]):
+            # the first read of a shard's results: the host waits for the
+            # card to finish the shard
+            with span("codec.wait"):
+                overflow = bool(r["sub_overflow"])
+            if overflow:
                 raise DeflateError("E_INDEX",
                                    f"shard {s}: sub-entry capacity overflow")
-            tb = int(r["total_bits"])
-            sb = shard_bytes(r)
-            part = raw[s * S:(s + 1) * S]
-            if cfg.self_check:
-                _self_check_shard(sb, tb, part, s)
-            parts.append(sb)
-            bt = r["btype"].cpu().numpy()
-            emitted = bt >= 0
-            for t in range(3):
-                btc[t] += int((bt == t).sum())
-            stats.n_blocks += int(emitted.sum())
-            stats.n_tokens += int(r["n_tokens"])
-            stats.n_matches += int(r["n_matches"])
-            stats.tree_bits += int(r["tree_bits"].sum())
-            stats.block_bits += r["block_bits"].cpu().numpy()[emitted].tolist()
-            stats.block_bytes += r["block_bytes"].cpu().numpy()[emitted].tolist()
-            self.metrics.record("shard_bytes", len(part))
-            self.metrics.record("shard_bits", tb)
-            _LOG.debug("shard %d/%d: %d bytes -> %d bits (%d blocks)",
-                       s + 1, nsh, len(part), tb, int(emitted.sum()))
-        for bb, bits in zip(stats.block_bytes, stats.block_bits):
-            self.metrics.record("block_bytes", bb)
-            self.metrics.record("block_bits", bits)
-        stats.btype_counts = tuple(btc)
+            with span("codec.unpack"):
+                tb = int(r["total_bits"])
+                sb = shard_bytes(r)
+                part = raw[s * S:(s + 1) * S]
+                if cfg.self_check:
+                    _self_check_shard(sb, tb, part, s)
+                parts.append(sb)
+                bt = r["btype"].cpu().numpy()
+                emitted = bt >= 0
+                for t in range(3):
+                    btc[t] += int((bt == t).sum())
+                stats.n_blocks += int(emitted.sum())
+                stats.n_tokens += int(r["n_tokens"])
+                stats.n_matches += int(r["n_matches"])
+                stats.tree_bits += int(r["tree_bits"].sum())
+                stats.block_bits += \
+                    r["block_bits"].cpu().numpy()[emitted].tolist()
+                stats.block_bytes += \
+                    r["block_bytes"].cpu().numpy()[emitted].tolist()
+                self.metrics.record("shard_bytes", len(part))
+                self.metrics.record("shard_bits", tb)
+                _LOG.debug("shard %d/%d: %d bytes -> %d bits (%d blocks)",
+                           s + 1, nsh, len(part), tb, int(emitted.sum()))
+        with span("codec.unpack"):
+            for bb, bits in zip(stats.block_bytes, stats.block_bits):
+                self.metrics.record("block_bytes", bb)
+                self.metrics.record("block_bits", bits)
+            stats.btype_counts = tuple(btc)
         return parts, stats
 
+    @spanned("codec.compress")
     def compress(self, data, return_stats: bool = False):
         raw = bytes(data)
         parts, stats = self._encode_shards(raw)
-        out = b"".join(parts)
+        with span("codec.wrap"):
+            out = b"".join(parts)
         stats.output_bytes = len(out)
         return (out, stats) if return_stats else out
 
@@ -158,11 +169,14 @@ class ZlibCodec(DeflateCodec):
     """zlib container (RFC 1950): CMF/FLG header + DEFLATE + big-endian
     adler32."""
 
+    @spanned("codec.compress")
     def compress(self, data, return_stats: bool = False):
         raw = bytes(data)
         parts, stats = self._encode_shards(raw)
-        adler = checksum.adler32_np(np.frombuffer(raw, dtype=np.uint8))
-        out = containers.zlib_wrap(b"".join(parts), adler)
+        with span("codec.adler32"):
+            adler = checksum.adler32_np(np.frombuffer(raw, dtype=np.uint8))
+        with span("codec.wrap"):
+            out = containers.zlib_wrap(b"".join(parts), adler)
         stats.output_bytes = len(out)
         return (out, stats) if return_stats else out
 
@@ -175,11 +189,14 @@ class ZlibCodec(DeflateCodec):
 class GzipCodec(DeflateCodec):
     """gzip container (RFC 1952): header + DEFLATE + CRC-32 + ISIZE."""
 
+    @spanned("codec.compress")
     def compress(self, data, return_stats: bool = False):
         raw = bytes(data)
         parts, stats = self._encode_shards(raw)
-        crc = checksum.crc32_np(raw)
-        out = containers.gzip_wrap(b"".join(parts), crc, len(raw))
+        with span("codec.crc32"):
+            crc = checksum.crc32_np(raw)
+        with span("codec.wrap"):
+            out = containers.gzip_wrap(b"".join(parts), crc, len(raw))
         stats.output_bytes = len(out)
         return (out, stats) if return_stats else out
 
@@ -233,21 +250,26 @@ def compress_stream(src, config: CodecConfig = DEFAULT_CONFIG,
     yield containers.container_header(cfg.container)
 
     def encode_one(part: bytes, s: int, final: bool) -> bytes:
-        buf = np.zeros(cfg.shard_size, dtype=np.uint8)
-        buf[:len(part)] = np.frombuffer(part, dtype=np.uint8)
-        r = encode_shard(torch.from_numpy(buf).to(dev), len(part), final,
+        with span("codec.upload"):
+            buf = np.zeros(cfg.shard_size, dtype=np.uint8)
+            buf[:len(part)] = np.frombuffer(part, dtype=np.uint8)
+            x = torch.from_numpy(buf).to(dev)
+        r = encode_shard(x, len(part), final,
                          num_candidates=cfg.num_candidates, lazy=cfg.lazy,
                          force_btype=cfg.force_btype)
-        if bool(r["sub_overflow"]):
+        with span("codec.wait"):
+            overflow = bool(r["sub_overflow"])
+        if overflow:
             raise DeflateError("E_INDEX",
                                f"shard {s}: sub-entry capacity overflow")
-        tb = int(r["total_bits"])
-        sb = shard_bytes(r)
-        if cfg.self_check:
-            _self_check_shard(sb, tb, part, s)
-        if index_sink is not None:
-            stats = {k: r[k].cpu().numpy() for k in INDEX_STAT_FIELDS}
-            index_sink.append((stats, tb, len(part)))
+        with span("codec.unpack"):
+            tb = int(r["total_bits"])
+            sb = shard_bytes(r)
+            if cfg.self_check:
+                _self_check_shard(sb, tb, part, s)
+            if index_sink is not None:
+                stats = {k: r[k].cpu().numpy() for k in INDEX_STAT_FIELDS}
+                index_sink.append((stats, tb, len(part)))
         return sb
 
     adler = 1
@@ -261,9 +283,12 @@ def compress_stream(src, config: CodecConfig = DEFAULT_CONFIG,
             s += 1
         pending = chunk
         if cfg.container == "zlib":
-            adler = checksum.adler32_np(np.frombuffer(chunk, np.uint8), adler)
+            with span("codec.adler32"):
+                adler = checksum.adler32_np(np.frombuffer(chunk, np.uint8),
+                                            adler)
         elif cfg.container == "gzip":
-            crc = checksum.crc32_np(chunk, crc)
+            with span("codec.crc32"):
+                crc = checksum.crc32_np(chunk, crc)
         total_in += len(chunk)
     if pending is not None:
         yield encode_one(pending, s, True)

@@ -7,15 +7,18 @@ Prints host-clock times (best of 3 after a warm-up, each ending in
 torch.cuda.synchronize()):
   * the whole encode_shard of the corpus's first shard, with the device
     memory it allocated at its peak;
-  * each of its stages in that encode (`encode_shard`'s `_marks` seam
-    synchronizes as each stage ends, so a stage's time is its host
-    dispatch and device work with nothing overlapped; the stages sum to
-    more than the whole): tokenize, token fields, tile histograms,
-    block_plan, block histograms, huffman_codes 11-bit, tree RLE, clen
-    histogram, huffman_codes 7-bit, bit costs, code tables, header items,
-    sub-entry index (the stride, from the tile histograms), pack_words
-    (the token items, layout, offsets, words, stored payloads and decode
-    entries: one memset and one launch of the kernel);
+  * each of its stages in that encode, read from the stage's span
+    "encode.<stage>" under torch.profiler with nothing synchronized
+    between the stages: its host ms and the device ms of the operations
+    launched inside it, per encode (the mean of 3 after a warm-up; the
+    first row is the whole "encode.shard", its device ms what it launches
+    outside its stages): tokenize, token_fields,
+    tile_histograms, block_plan, block_histograms, huffman_codes (the
+    11-bit and 7-bit builds together), tree_rle, clen_histogram,
+    bit_costs, code_tables, header_items, sub_entries (the stride, from
+    the tile histograms), pack_words (the token items, layout, offsets,
+    words, stored payloads and decode entries: one memset and one launch
+    of the kernel);
   * the block stage's and back end's ops (block_plan, huffman_codes at 11
     and 7 bits, pack_words) on the inputs that encode handed them, each
     beside its plain version on the same inputs on the card, and
@@ -31,7 +34,6 @@ and the device busy share of that window. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
-import inspect
 import subprocess
 import time
 
@@ -43,6 +45,7 @@ from .corpus import block_stage_inputs, build_corpus
 from .core import huffman, lz77
 from .format.deflate import encode_shard
 from .ops.block_plan import block_plan as block_plan_op
+from .utils.logging_util import SPAN_PREFIX
 
 
 def _timed(fn, reps: int = 3) -> float:
@@ -57,26 +60,48 @@ def _timed(fn, reps: int = 3) -> float:
     return best * 1e3
 
 
-def stage_times(x: torch.Tensor, valid_len: int, reps: int = 3) -> dict:
-    """Milliseconds of each stage of encode_shard(x), best of `reps` after
-    a warm-up, each stage ended by a synchronize at its mark."""
-    best = {}
-    for rep in range(reps + 1):
-        times = {}
-        last = [0.0]
+def span_times(events, prefix: str, calls: int) -> dict:
+    """{span: {"host_ms", "device_ms"}} per call of each span of the
+    profile's raw `events` whose name starts with "dct/" + `prefix`: its
+    host time, and the device time of the kernels, copies and memsets
+    launched inside it (a device operation goes to the innermost such
+    span open when the host launched it, by the launch's correlation id)."""
+    spans, launched, ops = [], {}, []
+    for e in events:
+        name, t0 = e.name(), e.start_ns()
+        if not str(e.device_type()).endswith("CPU"):
+            if not e.is_user_annotation():
+                ops.append((e.correlation_id(), e.duration_ns()))
+        elif name.startswith(SPAN_PREFIX + prefix):
+            spans.append((name[len(SPAN_PREFIX):], t0, t0 + e.duration_ns()))
+        elif name.startswith("cu"):
+            launched[e.correlation_id()] = t0
+    out = {}
+    for name, t0, t1 in spans:
+        row = out.setdefault(name, {"host_ms": 0.0, "device_ms": 0.0})
+        row["host_ms"] += (t1 - t0) / 1e6 / calls
+    for corr, dur in ops:
+        at = launched.get(corr)
+        inside = [(t1 - t0, n) for n, t0, t1 in spans
+                  if at is not None and t0 <= at < t1]
+        if inside:
+            out[min(inside)[1]]["device_ms"] += dur / 1e6 / calls
+    return out
 
-        def mark(stage):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            times[stage] = (now - last[0]) * 1e3
-            last[0] = now
+
+def stage_times(x: torch.Tensor, valid_len: int, reps: int = 3) -> dict:
+    """Host and device ms of each stage of encode_shard(x) per encode,
+    from the stage spans of `reps` encodes under torch.profiler after a
+    warm-up (span_times); nothing is synchronized between the stages."""
+    encode_shard(x, valid_len, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            encode_shard(x, valid_len, True)
         torch.cuda.synchronize()
-        last[0] = time.perf_counter()
-        encode_shard(x, valid_len, True, _marks=mark)
-        if rep:
-            for k, v in times.items():
-                best[k] = min(best.get(k, float("inf")), v)
-    return best
+    return span_times(prof.profiler.kineto_results.events(), "encode.",
+                      reps)
 
 
 def main() -> None:
@@ -107,9 +132,9 @@ def main() -> None:
     base = torch.cuda.memory_allocated()
     row("encode_shard", _timed(lambda: encode_shard(x, shard, True)),
         (torch.cuda.max_memory_allocated() - base) / 2**20)
-    if "_marks" in inspect.signature(encode_shard).parameters:
-        for name, ms in stage_times(x, shard).items():
-            row(f"  stage: {name}", ms)
+    for name, t in stage_times(x, shard).items():
+        print(f"  {name:26s} {t['host_ms']:9.3f} ms host, "
+              f"{t['device_ms']:9.3f} ms device (spans, mean of 3)")
     for name, (op, ref, a, k) in block_stage_inputs(x, shard).items():
         row(name, _timed(lambda: op(*a, **k)))
         row(f"plain {name}", _timed(lambda: ref(*a, **k)))
@@ -151,7 +176,8 @@ def main() -> None:
         wall = time.perf_counter() - t0
     evs = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
     print(f"window: {args.shards} shards in {wall * 1e3:.3f} ms host clock; "
           f"device time {dev_us / 1e3:.3f} ms; busy share "
           f"{dev_us / 1e6 / wall:.4f}")

@@ -1,17 +1,28 @@
-"""Logging and metrics (counterpart of
+"""Logging, metrics and spans (counterpart of
 deflate_compression_tpu/utils/logging_util.py): one-call setup of the
-port's logger hierarchy (deflate_compression_tpu_torch.*) and an
-append-only metrics recorder whose cost trace is the reference's format B
-(`bytes,compressed_bits`).
+port's logger hierarchy (deflate_compression_tpu_torch.*), an append-only
+metrics recorder whose cost trace is the reference's format B
+(`bytes,compressed_bits`), and the port's spans (`span`, `spanned`).
+
+Tracing: the port marks its layer boundaries with spans that show only
+in a running `torch.profiler`, as host ranges named "dct/<name>" beside
+the kernels and copies they launch, on the clock of the device trace.
+Nothing else turns them on, and with no profiler a span costs one check.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 import os
 import sys
 import time
 
+import torch
+
 LOGGER_NAME = "deflate_compression_tpu_torch"
+SPAN_PREFIX = "dct/"
+_NO_SPAN = contextlib.nullcontext()
 
 
 def setup_logging(level: str | int | None = None, stream=None) -> None:
@@ -57,3 +68,25 @@ class MetricsRecorder:
             out.setdefault(k, []).append(v)
         return {k: {"count": len(v), "sum": sum(v), "last": v[-1]}
                 for k, v in out.items()}
+
+
+def span(name: str):
+    """The context of one span: `torch.profiler.record_function("dct/" +
+    name)` while a torch profiler runs, else one shared null context. Its
+    parent is the span open around it on the calling thread (the port is
+    synchronous, so a call's outermost span identifies the call). A span
+    neither synchronizes the device nor reads a tensor."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: every call of the function inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap

@@ -42,11 +42,16 @@ ops/timing.py` (loaded by path, so every tree is timed alike):
     warm-up, each ended by a synchronize), the peak device memory one
     encode_shard allocates above what was allocated before it, and a
     SHA-256 of its words, total_bits and stats; where the tree's
-    encode_shard has the `_marks` seam, its stages' host ms
+    encode_shard has the `_marks` seam (trees before the port's spans),
+    its stages' host ms, each ended by a synchronize
     (`profile_encode.stage_times`, best of 3: a tree before the bit-pack
     kernel has "tables and items", "block_layout", "item offsets",
     "pack64", "pack96" and "stored payloads" where a tree with it has
-    "code tables" and "pack_words"); and where the tree has them, the
+    "code tables" and "pack_words"), and where the tree has the port's
+    spans, each stage's host ms and device ms read from its span
+    "encode.<stage>" under torch.profiler with nothing synchronized
+    (`profile_encode.stage_times`, the mean of 3: "stages"); and where
+    the tree has them, the
     ops that encode handed its block stage and back end
     (`corpus.block_stage_inputs`: `block_plan`, `huffman_codes` at 11
     and 7 bits, and `block_layout` or `pack_words`): device ms per call
@@ -331,6 +336,8 @@ def block_stage_times(T, dev) -> dict:
         del enc
         if "_marks" in inspect.signature(encode_shard).parameters:
             r["stages_ms"] = PE.stage_times(x, n)
+        elif hasattr(PE, "span_times"):
+            r["stages"] = PE.stage_times(x, n)
         for name, (op, ref, a, k) in getattr(
                 corpus, "block_stage_inputs", lambda *_: {})(x, n).items():
             fn = lambda: op(*a, **k)  # noqa: E731
