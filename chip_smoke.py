@@ -109,7 +109,14 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      only in blocks with Huffman codes, a stored block's bytes), the
      look-back's wait per unit in clock64 cycles, taken to ns at the
      launch's own clock, and the kernel's span on the globaltimer
-     (`stats`), and one 4 MB encode_shard's peak device memory.
+     (`stats`), and one 4 MB encode_shard's peak device memory;
+ 17. the Adler-32 kernel: adler32_torch against zlib.adler32 and its plain
+     version, exactly, at lengths 0 to 4 MiB + 1 (zlib's NMAX +- 1, all
+     0xFF), views at each of the 16 byte offsets, a length held on the
+     card, one launch a call, the largest difference from zlib
+     (`max_abs_err`); under sync debug mode "error"; its times as
+     in phase 3 on 1 MiB and 4 MiB (the verified decode's group and shard)
+     beside the bound, the bytes read once over 3.35 TB/s.
 Any failure raises, so the script exits non-zero. Before the last line it
 prints the kernels' JSON line: per kernel its launches on the main path
 (the 1 MB-shard encode of phase 4 and decode of phase 8), on the 4 MB-
@@ -145,7 +152,13 @@ look-back, its cycles at that clock), `to_aggregate_us`
 start to last unit's end), the same at phase 10's first shard
 (`*_4mb`), `resident_units`, `calls_held`, `layout_scan_max_abs_err`,
 `peak_gib_4mb_encode` (phase 10's encode) and
-`encode_shard_peak_mib_4mb` (one 4 MB encode_shard).
+`encode_shard_peak_mib_4mb` (one 4 MB encode_shard); adler32 carries its
+launches in phase 8's flat decode (`launches`: one a shard) and its
+indexed decode (`launches_indexed`: one a group), on the other paths as the
+others do (one a shard in `launches_4mb` and `launches_dist`, none in the
+CLI's compress and trace, one a group in its decompress --index),
+`launches_per_call` (phase 17's loop) and the same times at 4 MiB
+(`*_4mb`).
 The last line is the JSON result {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -299,6 +312,7 @@ def main() -> int:
     from deflate_compression_tpu_torch.ops import huffman_codes as HC
     from deflate_compression_tpu_torch.ops import lut_gather as LG
     from deflate_compression_tpu_torch.ops import lz_parse as LP
+    from deflate_compression_tpu_torch.ops import adler32 as AD
     from deflate_compression_tpu_torch.ops import pack_words as PW
 
     dev = torch.device("cuda")
@@ -316,7 +330,7 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = [cuda_build.Build(src) for src in (
         H.SOURCE, DS.SOURCE, LG.SOURCE, BT.SOURCE, CS.SOURCE, FM.SOURCE,
-        LP.SOURCE, BP.SOURCE, HC.SOURCE, BL.SOURCE, PW.SOURCE)]
+        LP.SOURCE, BP.SOURCE, HC.SOURCE, BL.SOURCE, PW.SOURCE, AD.SOURCE)]
     lib = builds[0].wait()
     t_hist = time.perf_counter() - t0
     ds_lib, lg_lib, bt_lib, cs_lib, *rest_libs = (
@@ -419,7 +433,7 @@ def main() -> int:
           f"{len(blob)}-byte zlib stream identical")
     torch.cuda.synchronize()
 
-    decode = decode_phases(raw, cfg, blob, dev,
+    ad_main, decode = decode_phases(raw, cfg, blob, dev,
                            (ds_lib.name, lg_lib.name, bt_lib.name,
                             cs_lib.name), t_ds)
     large = large_shard_phase(dev, len(raw) / dt)
@@ -429,6 +443,7 @@ def main() -> int:
     lz = lz77_phase(raw, cfg, dev)
     blk = block_stage_phase(raw, cfg, dev)
     pk = pack_phase(blk, dev)
+    ad = adler32_phase(dev)
     blk_peak = blk.pop("encode_peak_mib")
     del blk["packs"], blk["first_packs"]
 
@@ -530,7 +545,19 @@ def main() -> int:
          "peak_gib_4mb_encode": large["peak_gib"],
          "encode_shard_peak_mib_4mb": blk_peak["4mb"],
          "encode_shard_peak_mib": blk_peak["1mb"],
-         "layout_scan_max_abs_err": pk["layout_err"]}]}))
+         "layout_scan_max_abs_err": pk["layout_err"]},
+        {"name": "adler32", "route": "cuda",
+         "source": "deflate_compression_tpu_torch/csrc/adler32.cu",
+         "replaces": "deflate_compression_tpu/core/checksum.py::adler32_jax "
+         "(plain jnp there: no Pallas kernel)",
+         **ad_main, **new_paths("adler32"),
+         "launches_per_call": ad["launches_per_call"],
+         "max_abs_err": ad["max_abs_err"],
+         **entry(ad["1mb"]), "library_ms": None,
+         **{f"{k}_4mb": ad["4mb"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "share_of_bound", "call_ms", "plain_call_ms",
+                      "prof_ms", "plain_prof_ms")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -601,8 +628,8 @@ def verified_decode(raw: bytes, batch, valid, S: int):
     """One flat decode_blocks_batch over every shard of `batch`, checked
     on the card: ok, adler32 per shard equal to zlib's of the input, and
     the bytes. Returns (result, host seconds of the decode and its adler32
-    checks, every kernel's launches in it: one of each decode kernel); the
-    first call warms up."""
+    checks, every kernel's launches in it: one of each decode kernel and
+    one adler32 a shard); the first call warms up."""
     from deflate_compression_tpu_torch.core.checksum import adler32_torch
     from deflate_compression_tpu_torch.decode import device_inflate as DI
     nsh = len(valid)
@@ -622,7 +649,7 @@ def verified_decode(raw: bytes, batch, valid, S: int):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
-    if launches != decode_counts(1):
+    if launches != decode_counts(1, adler32=nsh):
         raise AssertionError(f"flat decode of {S}-byte shards launched "
                              f"{launches}")
     if not ok or ads != want:
@@ -789,7 +816,8 @@ def stream_batch(raw: bytes, cfg, blob: bytes, dev):
 def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
                   t_build: float):
     """Phases 6-9: the decoder's kernels and the decode slice. Returns the
-    decode kernels' entries of the kernels JSON line."""
+    decode kernels' entries of the kernels JSON line and the Adler-32
+    kernel's launches in phase 8's flat and indexed decodes."""
     from deflate_compression_tpu_torch import CodecConfig
     from deflate_compression_tpu_torch.core.checksum import adler32_torch
     from deflate_compression_tpu_torch.corpus import repo_text
@@ -1137,7 +1165,9 @@ def decode_phases(raw: bytes, cfg, blob: bytes, dev, lib_names,
           f"shards 0 and {nsh - 1}: GPU == CPU (out, ok, bad lanes)")
     torch.cuda.synchronize()
 
-    return [{"name": "build_tables", "route": "cuda",
+    adler = {"launches": flat_launches["adler32"],
+             "launches_indexed": idx_launches["adler32"]}
+    return adler, [{"name": "build_tables", "route": "cuda",
              "source": "deflate_compression_tpu_torch/csrc/build_tables.cu",
              "replaces": "deflate_compression_tpu/decode/tpu_inflate.py:352 "
                          "(left to XLA there: no Pallas kernel)",
@@ -1419,6 +1449,7 @@ def surface_phase(raw: bytes, dev) -> tuple:
 
 def counters() -> dict:
     """Each kernel's wrapper, whose `launches` counts its launches."""
+    from deflate_compression_tpu_torch.ops import adler32 as AD
     from deflate_compression_tpu_torch.ops import block_layout as BL
     from deflate_compression_tpu_torch.ops import block_plan as BP
     from deflate_compression_tpu_torch.ops import build_tables as BT
@@ -1435,22 +1466,28 @@ def counters() -> dict:
             "block_plan": BP.block_plan, "huffman_codes": HC.huffman_codes,
             "block_layout": BL.block_layout, PACK: PW.pack_words,
             "decode_symbols": DS.decode_symbols, "lut_gather": LG.lut_gather,
-            "build_tables": BT.build_tables, "copy_sources": CS.resolve_bytes}
+            "build_tables": BT.build_tables, "copy_sources": CS.resolve_bytes,
+            "adler32": AD.adler32}
 
 
-def encode_counts(nsh: int) -> dict:
+def encode_counts(nsh: int, adler32: int = 0) -> dict:
     """Each kernel's launches in an encode of nsh shards of more than one
-    tile, the blocks chosen by cost (pack_words carries the layout)."""
+    tile, the blocks chosen by cost (pack_words carries the layout), and
+    `adler32` Adler-32 launches (the codecs' checksum is the host's;
+    compress_distributed's one a shard on the card)."""
     return {"tile_histogram": 2 * nsh, **{k: nsh for k in ENCODE_KERNELS},
             "block_plan": nsh, "huffman_codes": 2 * nsh, "block_layout": 0,
-            PACK: nsh, **{k: 0 for k in DECODE_KERNELS}}
+            PACK: nsh, **{k: 0 for k in DECODE_KERNELS}, "adler32": adler32}
 
 
-def decode_counts(n: int) -> dict:
-    """Each kernel's launches in n decodes (flat batches or groups)."""
+def decode_counts(n: int, adler32: int | None = None) -> dict:
+    """Each kernel's launches in n decodes (flat batches or groups), with
+    `adler32` Adler-32 launches (one a decode unless given: a group of
+    decompress_indexed; a flat batch checks each shard)."""
     return {"tile_histogram": 0, **{k: 0 for k in ENCODE_KERNELS},
             **{k: 0 for k in BLOCK_KERNELS}, PACK: 0,
-            **{k: n for k in DECODE_KERNELS}}
+            **{k: n for k in DECODE_KERNELS},
+            "adler32": n if adler32 is None else adler32}
 
 
 def zero_counts() -> None:
@@ -1476,6 +1513,7 @@ sys.path.insert(0, sys.argv[5])
 from deflate_compression_tpu_torch.parallel.dist import (
     compress_distributed, make_mesh)
 from deflate_compression_tpu_torch.parallel.launcher import init_distributed
+from deflate_compression_tpu_torch.ops import adler32 as AD
 from deflate_compression_tpu_torch.ops import block_layout as BL
 from deflate_compression_tpu_torch.ops import block_plan as BP
 from deflate_compression_tpu_torch.ops import histogram as H
@@ -1491,7 +1529,7 @@ compress_distributed(raw[:S], mesh, shard_size=S)    # warm-up
 torch.cuda.synchronize()
 FNS = {"tile_histogram": H.tile_histogram, "block_plan": BP.block_plan,
        "huffman_codes": HC.huffman_codes, "block_layout": BL.block_layout,
-       "pack_words": PW.pack_words}
+       "pack_words": PW.pack_words, "adler32": AD.adler32}
 for f in FNS.values():
     f.launches = 0
 t0 = time.perf_counter()
@@ -1609,7 +1647,7 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
         tdist.destroy_process_group()
     if out != blob:
         raise AssertionError("1-rank NCCL compress_distributed != phase 4")
-    if launches != encode_counts(nsh):
+    if launches != encode_counts(nsh, adler32=nsh):
         raise AssertionError(f"1-rank NCCL run launched {launches}")
 
     with tempfile.TemporaryDirectory() as d:
@@ -1653,8 +1691,8 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
         raise AssertionError("2 gloo ranks: bytes or index differ from the "
                              "1-rank NCCL run")
     per_rank = [len(range(r, nsh, 2)) for r in range(2)]
-    if [[x[k] for k in ("tile_histogram", *BLOCK_KERNELS, PACK)]
-            for x in ranks] != [[2 * n, n, 2 * n, 0, n]
+    if [[x[k] for k in ("tile_histogram", *BLOCK_KERNELS, PACK, "adler32")]
+            for x in ranks] != [[2 * n, n, 2 * n, 0, n, n]
                                 for n in per_rank]:
         raise AssertionError(f"2 gloo ranks launched {ranks}")
     if info_r["resumed_at_shard"] != 4 or resumed != blob or \
@@ -1708,6 +1746,7 @@ def dist_phase(raw: bytes, cfg, blob: bytes, dev, mbs_1mb: float) -> dict:
 # runs it) that prints each kernel's launches in the process at exit
 _COUNTING_MAIN = r"""
 import atexit, json, runpy, sys
+from deflate_compression_tpu_torch.ops import adler32 as AD
 from deflate_compression_tpu_torch.ops import block_layout as BL
 from deflate_compression_tpu_torch.ops import block_plan as BP
 from deflate_compression_tpu_torch.ops import build_tables as BT
@@ -1733,7 +1772,8 @@ def _counts():
         "decode_symbols": DS.decode_symbols.launches,
         "lut_gather": LG.lut_gather.launches,
         "build_tables": BT.build_tables.launches,
-        "copy_sources": CS.resolve_bytes.launches}), file=sys.stderr,
+        "copy_sources": CS.resolve_bytes.launches,
+        "adler32": AD.adler32.launches}), file=sys.stderr,
         flush=True)
 
 
@@ -1807,7 +1847,9 @@ def cli_phase(raw: bytes, blob: bytes, stats, px: np.ndarray, dev) -> dict:
             math.ceil(len(raw) / (1 << 20)))),
         ("trace launches", counts["trace"] == counts["compress"]),
         ("decompress --index launches",
-         min(counts["decompress --index"][k] for k in DECODE_KERNELS) >= 1)]
+         min(counts["decompress --index"][k] for k in DECODE_KERNELS) >= 1
+         and counts["decompress --index"]["adler32"]
+         == counts["decompress --index"]["build_tables"])]
     bad = [name for name, ok in checks if not ok]
     if bad:
         raise AssertionError(f"CLI checks failed: {bad}; launches {counts}")
@@ -2225,6 +2267,62 @@ def pack_bytes(a) -> int:
              + 8 * int((nbs > 0).sum()) + 8 * int((tabs >> 16 > 0).sum())
              + 8)
     return reads + 8 * (nw + 3 * NB + 3) + 24 * (S // 64)
+
+
+def adler32_phase(dev) -> dict:
+    """Phase 17: adler32_torch (the kernel) against zlib.adler32 and
+    adler32_torch_ref on the card, exactly: lengths 0 to 4 MiB + 1, all
+    0xFF at 4 MiB, views at each byte offset of a 16-byte line, lengths
+    held on the card; one launch a call; under sync debug mode "error";
+    its and its plain version's times on 1 MiB and 4 MiB of bytes beside
+    the bound, the bytes read once over 3.35 TB/s (warm in L2, as the
+    decode that wrote them leaves them)."""
+    from deflate_compression_tpu_torch.core import checksum as CK
+    from deflate_compression_tpu_torch.ops import adler32 as AD
+    rng = np.random.default_rng(17)
+    data = rng.integers(0, 256, LARGE_SHARD + 64, dtype=np.uint8)
+    x = torch.from_numpy(data).to(dev)
+    ff = torch.full((LARGE_SHARD,), 0xFF, dtype=torch.uint8, device=dev)
+    cases = [(x, data, n) for n in (0, 1, 5551, 5552, 5553, 1 << 20,
+                                    LARGE_SHARD, LARGE_SHARD + 1)]
+    cases += [(x[o:], data[o:], n) for o in range(1, 16)
+              for n in (17, (1 << 20) + o, LARGE_SHARD)]
+    cases.append((ff, np.full(LARGE_SHARD, 0xFF, np.uint8), LARGE_SHARD))
+    launches = AD.adler32.launches
+    err = 0
+    for t, host, n in cases:
+        want = zlib.adler32(host[:n].tobytes())
+        got = [int(CK.adler32_torch(t, n)),
+               int(CK.adler32_torch(t, torch.tensor(n, device=dev))),
+               int(CK.adler32_torch_ref(t, n))]
+        err = max(err, *(abs(g - want) for g in got[:2]))
+        if got != [want] * 3:
+            raise AssertionError(f"adler32 of {n} bytes at offset "
+                                 f"{t.data_ptr() % 16}: kernel, kernel with "
+                                 f"the length on the card, plain {got} != "
+                                 f"zlib {want}")
+    per_call = (AD.adler32.launches - launches) / (2 * len(cases))
+    if per_call != 1:
+        raise AssertionError(f"adler32_torch launched {per_call} a call")
+    n_card = torch.tensor(LARGE_SHARD - 3, device=dev)
+    got = no_sync(lambda: (CK.adler32_torch(x, LARGE_SHARD),
+                           CK.adler32_torch(x, n_card)))
+    if [int(g) for g in got] != [zlib.adler32(data[:n].tobytes())
+                                 for n in (LARGE_SHARD, LARGE_SHARD - 3)]:
+        raise AssertionError("adler32 under sync debug mode differs")
+    times, shown = {}, []
+    for label, n in (("1mb", 1 << 20), ("4mb", LARGE_SHARD)):
+        t = times[label] = timings(
+            "adler32_kernel", lambda: CK.adler32_torch(x, n),
+            lambda: CK.adler32_torch_ref(x, n), 100, 20, n, plain_n=20)
+        shown.append(f"{label}: {show(t)}")
+    print(f"phase 17 adler32: tolerance 0 (exact), == zlib and plain on "
+          f"{len(cases)} cases (lengths 0 to {LARGE_SHARD + 1}, offsets "
+          f"1-15, all 0xFF), with the length as an int and on the card; "
+          f"one launch a call; no wait under sync debug mode \"error\"; "
+          f"{'; '.join(shown)}")
+    torch.cuda.synchronize()
+    return {**times, "launches_per_call": per_call, "max_abs_err": err}
 
 
 def pack_phase(blk: dict, dev) -> dict:

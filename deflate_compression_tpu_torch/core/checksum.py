@@ -1,8 +1,9 @@
 """Checksums (counterpart of deflate_compression_tpu/core/checksum.py, whose
 module imports JAX): Adler-32 for the zlib footer (`adler32_np` on the host,
-`adler32_torch` on a tensor's device, `adler32_combine`) and CRC-32 for gzip
-and PNG (`crc32_np`, `crc32_combine`, `crc32_combine_raw`: host numpy, a
-copy of the JAX package's, which has no device CRC either).
+`adler32_torch` on a tensor's device, by the hand kernel of `ops/adler32.py`
+on a CUDA card, `adler32_combine`) and CRC-32 for gzip and PNG (`crc32_np`,
+`crc32_combine`, `crc32_combine_raw`: host numpy, a copy of the JAX
+package's, which has no device CRC either).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import functools
 import numpy as np
 import torch
 
+from ..ops.adler32 import adler32 as adler32_kernel
 from ..utils.logging_util import spanned
 
 ADLER_MOD = 65521
@@ -33,10 +35,10 @@ def adler32_np(data: np.ndarray, value: int = 1) -> int:
     return ((b << 16) | a) & 0xFFFFFFFF
 
 
-@spanned("checksum.adler32")
-def adler32_torch(data: torch.Tensor, valid_len) -> torch.Tensor:
-    """Adler-32 of data[:valid_len] (u8[S] tensor) as an int64 0-d tensor
-    on data's device; port of the JAX package's `adler32_jax`.
+def adler32_torch_ref(data: torch.Tensor, valid_len) -> torch.Tensor:
+    """Plain version of `adler32_torch` (a port of the JAX package's
+    `adler32_jax`): what `adler32_torch` runs for a CPU tensor, and the
+    reference its kernel is held against on the card.
 
     Each NMAX-sized chunk gives its byte sum and its weighted sum
     sum((m - i) * d[i]) in one reduction. The JAX version then folds the
@@ -60,6 +62,19 @@ def adler32_torch(data: torch.Tensor, valid_len) -> torch.Tensor:
     b = (m * a_before + wsum).sum() % ADLER_MOD
     a = (1 + csum.sum()) % ADLER_MOD
     return (b << 16) | a
+
+
+@spanned("checksum.adler32")
+def adler32_torch(data: torch.Tensor, valid_len) -> torch.Tensor:
+    """Adler-32 of data[:valid_len] (u8[S] tensor) as an int64 0-d tensor
+    on data's device. A CUDA tensor goes through the hand kernel
+    (`ops/adler32.py`: one launch, no copy from the host, no wait for the
+    card; valid_len an int or a one-element tensor on the card) or this
+    raises; a CPU tensor through `adler32_torch_ref`.
+    `ops.adler32.adler32.launches` counts the kernel's launches."""
+    if data.device.type == "cpu":
+        return adler32_torch_ref(data, valid_len)
+    return adler32_kernel(data, valid_len)
 
 
 def adler32_combine(ad1: int, ad2: int, len2: int) -> int:

@@ -20,7 +20,8 @@ once `portbench/trace.py` takes the port's "dct/" spans and
     counter against `h2d_bytes_per_byte.indexed`, and `dct/encode.shard`
     against the benchmark's `encode_shard` span;
   * each port span's calls, host ms a MB and the device ms a MB launched
-    inside it; the breakdown's longest idle gaps named by the innermost
+    inside it, and the host-to-device copies launched inside it; the
+    breakdown's longest idle gaps named by the innermost
     port span or torch operation at their middle; and the share of the
     window's idle time inside each of the spans that hold most of it.
 
@@ -158,6 +159,10 @@ def read_program(cell: str, res: dict, kept: dict) -> dict:
                "host_ms_per_MB": t.span_ns(name) / 1e6 / t.mb,
                "device_ms_per_MB": (t.device_ns(name) or 0) / 1e6 / t.mb}
         for name in sorted(t.spans) if name.startswith("dct/")}
+    copies = {name: sum(op.startswith("Memcpy HtoD")
+                        for op, _ in t.device_ops(name))
+              for name in sorted(t.spans) if name.startswith("dct/")}
+    out["htod_copies_in_spans"] = {k: n for k, n in copies.items() if n}
     idle = idle_in_spans(t)
     out["idle_share_in_spans"] = dict(sorted(
         idle.items(), key=lambda kv: -kv[1])[:8])

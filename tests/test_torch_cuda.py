@@ -1365,3 +1365,140 @@ def test_block_layout_kernel_block_counts(cuda, nb, share):
     want = BL.block_layout_ref(r.cpu(), s.cpu())
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------- adler32
+
+from deflate_compression_tpu_torch.core import checksum as CK  # noqa: E402
+from deflate_compression_tpu_torch.ops import adler32 as AD  # noqa: E402
+from test_torch_adler32 import CASE_IDS, CASES, MIB, case_data  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,size,n", CASES, ids=CASE_IDS)
+def test_adler32_kernel_matches_plain_and_zlib(cuda, kind, size, n):
+    data = case_data(kind, size)
+    x = torch.from_numpy(data).to(cuda)
+    want = zlib.adler32(data[:n].tobytes())
+    before = AD.adler32.launches
+    got = CK.adler32_torch(x, n)
+    assert AD.adler32.launches == before + 1
+    assert (got.device, got.dtype, got.dim()) == (x.device, torch.int64, 0)
+    assert int(got) == want == int(CK.adler32_torch_ref(x, n))
+    assert int(CK.adler32_torch(x, torch.tensor(n, device=cuda))) == want
+    assert AD.adler32.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(16))
+def test_adler32_kernel_unaligned_views(cuda, offset):
+    """A view starting at every byte of a 16-byte line; its bytes before
+    and after are nonzero."""
+    data = case_data("random", 4 * MIB + 64, seed=offset)
+    x = torch.from_numpy(data).to(cuda)[offset:]
+    for n in (0, 1, 17, 5553, MIB + 1, 4 * MIB):
+        want = zlib.adler32(data[offset:offset + n].tobytes())
+        assert int(CK.adler32_torch(x, n)) == want, n
+        assert int(CK.adler32_torch(
+            x, torch.tensor(n, device=cuda))) == want, n
+
+
+@pytest.mark.cuda
+def test_adler32_kernel_rows_of_a_batch(cuda):
+    """out[s] of a batch whose rows start at other alignments, as the
+    verified decode checksums its shards."""
+    rows, width = 5, 1_000_003
+    data = case_data("random", rows * width)
+    out = torch.from_numpy(data).to(cuda).view(rows, width)
+    valid = [width, width - 1, 5552, 1, 0]
+    got = torch.stack([CK.adler32_torch(out[s], v)
+                       for s, v in enumerate(valid)])
+    assert got.tolist() == [zlib.adler32(data[s * width:s * width + v]
+                                         .tobytes())
+                            for s, v in enumerate(valid)]
+
+
+@pytest.mark.cuda
+def test_adler32_kernel_length_on_the_card(cuda):
+    data = case_data("random", 200_000)
+    x = torch.from_numpy(data).to(cuda)
+    for n in (0, 1, 99_999, 200_000):
+        for dtype in (torch.int64, torch.int32):
+            got = CK.adler32_torch(x, torch.tensor([n], dtype=dtype,
+                                                   device=cuda))
+            assert int(got) == zlib.adler32(data[:n].tobytes()), (n, dtype)
+    # the kernel clamps a length on the card to [0, len(data)]
+    assert int(CK.adler32_torch(x, torch.tensor(10 ** 9, device=cuda))) \
+        == zlib.adler32(data.tobytes())
+    assert int(CK.adler32_torch(x, torch.tensor(-5, device=cuda))) == 1
+    with pytest.raises(ValueError):
+        CK.adler32_torch(x, 200_001)
+    with pytest.raises(TypeError):
+        CK.adler32_torch(x, torch.tensor(5.0, device=cuda))
+
+
+@pytest.mark.cuda
+def test_adler32_kernel_queues_without_waiting(cuda):
+    """Two calls (an int length and one on the card) queue behind a spin
+    kernel: the host returns while the spin still runs, under sync debug
+    mode "error", and the results are right once it ends."""
+    data = case_data("random", 4 * MIB)
+    x = torch.from_numpy(data).to(cuda)
+    n_card = torch.tensor(4 * MIB - 3, device=cuda)
+    CK.adler32_torch(x, 5)                      # build and bind
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(200_000_000)          # about 0.1 s
+        got = [CK.adler32_torch(x, 4 * MIB), CK.adler32_torch(x, n_card)]
+        done = torch.cuda.Event()
+        done.record()
+        assert not done.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert [int(g) for g in got] == [zlib.adler32(data.tobytes()),
+                                     zlib.adler32(data[:-3].tobytes())]
+
+
+@pytest.mark.cuda
+def test_adler32_kernel_one_launch_no_copy(cuda):
+    """Under the profiler a call is one kernel on the card: no copy from
+    the host, no memset."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.from_numpy(case_data("random", 4 * MIB)).to(cuda)
+    CK.adler32_torch(x, 4 * MIB)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        CK.adler32_torch(x, 4 * MIB)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("adler32_kernel" in n for n in names) == 1, names
+    assert not any("Memcpy" in n or "Memset" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_adler32_launches_on_its_callers_paths(cuda):
+    """One launch a group in decompress_indexed with an expected Adler-32
+    and none without; one a shard in a single-rank compress_distributed."""
+    from deflate_compression_tpu_torch.parallel.dist import (
+        compress_distributed)
+    raw = corpus.build_corpus(300_000)
+    z = zlib.compress(raw, 6)
+    idx = tidx.build_index(z[2:-4], prefer_native=False)
+    before = [AD.adler32.launches, BT.build_tables.launches]
+    assert tidx.decompress_indexed(z[2:-4], idx, shard_out=1 << 16,
+                                   expected_adler=zlib.adler32(raw),
+                                   device="cuda") == raw
+    groups = BT.build_tables.launches - before[1]
+    assert groups >= 2
+    assert AD.adler32.launches - before[0] == groups
+    before = AD.adler32.launches
+    assert tidx.decompress_indexed(z[2:-4], idx, shard_out=1 << 16,
+                                   device="cuda") == raw
+    assert AD.adler32.launches == before
+    blob = compress_distributed(raw, shard_size=1 << 16, device="cuda")
+    assert zlib.decompress(blob) == raw
+    assert AD.adler32.launches - before == -(-len(raw) // (1 << 16))
