@@ -70,8 +70,9 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      shard 3 and resumed;
  13. the command line: each subcommand as `python3 -m
      deflate_compression_tpu_torch` in a subprocess (compress, decompress
-     --index and trace on the card, counting launches), checked against the
-     zlib oracle and the bytes of phases 4 and 11;
+     --index and trace on the card, counting launches; decompress --index
+     also on a gzip -9 member, its CRC-32 checked on the card), checked
+     against the zlib oracle and the bytes of phases 4 and 11;
  14. the encoder's LZ77 kernels: find_matches and lz_parse against their
      plain versions, exactly, on phase 4's first and last shards, one 4 MB
      shard, the trace's input and the edge cases of `corpus.lz_case`;
@@ -116,7 +117,12 @@ Phases (each prints one line and ends with torch.cuda.synchronize()):
      card, one launch a call, the largest difference from zlib
      (`max_abs_err`); under sync debug mode "error"; its times as
      in phase 3 on 1 MiB and 4 MiB (the verified decode's group and shard)
-     beside the bound, the bytes read once over 3.35 TB/s.
+     beside the bound, the bytes read once over 3.35 TB/s;
+ 18. the CRC-32 kernel: crc32_torch against zlib.crc32 and its plain
+     version as phase 17 holds adler32, with starting values as ints and
+     on the card, its times at 1 MiB and 4 MiB beside the bound (the bytes
+     read once and 8 written), and a gzip -9 member of 32 MB through
+     decompress_gzip_indexed in 4 MiB groups, one launch a group.
 Any failure raises, so the script exits non-zero. Before the last line it
 prints the kernels' JSON line: per kernel its launches on the main path
 (the 1 MB-shard encode of phase 4 and decode of phase 8), on the 4 MB-
@@ -158,7 +164,10 @@ indexed decode (`launches_indexed`: one a group), on the other paths as the
 others do (one a shard in `launches_4mb` and `launches_dist`, none in the
 CLI's compress and trace, one a group in its decompress --index),
 `launches_per_call` (phase 17's loop) and the same times at 4 MiB
-(`*_4mb`).
+(`*_4mb`); crc32 carries its launches in phase 18's gzip member
+(`launches_gzip`: one a group), none on the other paths but the CLI's
+decompress --index of a gzip member (one a group), `launches_per_call`
+and its times as adler32's.
 The last line is the JSON result {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -444,6 +453,7 @@ def main() -> int:
     blk = block_stage_phase(raw, cfg, dev)
     pk = pack_phase(blk, dev)
     ad = adler32_phase(dev)
+    cr = crc32_phase(dev)
     blk_peak = blk.pop("encode_peak_mib")
     del blk["packs"], blk["first_packs"]
 
@@ -555,6 +565,18 @@ def main() -> int:
          "max_abs_err": ad["max_abs_err"],
          **entry(ad["1mb"]), "library_ms": None,
          **{f"{k}_4mb": ad["4mb"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "share_of_bound", "call_ms", "plain_call_ms",
+                      "prof_ms", "plain_prof_ms")}},
+        {"name": "crc32", "route": "cuda",
+         "source": "deflate_compression_tpu_torch/csrc/crc32.cu",
+         "replaces": "none: the JAX package's CRC-32 is host numpy "
+         "(deflate_compression_tpu/core/checksum.py::crc32_np)",
+         "launches_gzip": cr["launches_gzip"], **new_paths("crc32"),
+         "launches_per_call": cr["launches_per_call"],
+         "max_abs_err": cr["max_abs_err"],
+         **entry(cr["1mb"]), "library_ms": None,
+         **{f"{k}_4mb": cr["4mb"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "share_of_bound", "call_ms", "plain_call_ms",
                       "prof_ms", "plain_prof_ms")}}]}))
@@ -1454,6 +1476,7 @@ def counters() -> dict:
     from deflate_compression_tpu_torch.ops import block_plan as BP
     from deflate_compression_tpu_torch.ops import build_tables as BT
     from deflate_compression_tpu_torch.ops import copy_sources as CS
+    from deflate_compression_tpu_torch.ops import crc32 as CR
     from deflate_compression_tpu_torch.ops import decode_symbols as DS
     from deflate_compression_tpu_torch.ops import find_matches as FM
     from deflate_compression_tpu_torch.ops import histogram as H
@@ -1467,27 +1490,31 @@ def counters() -> dict:
             "block_layout": BL.block_layout, PACK: PW.pack_words,
             "decode_symbols": DS.decode_symbols, "lut_gather": LG.lut_gather,
             "build_tables": BT.build_tables, "copy_sources": CS.resolve_bytes,
-            "adler32": AD.adler32}
+            "adler32": AD.adler32, "crc32": CR.crc32}
 
 
 def encode_counts(nsh: int, adler32: int = 0) -> dict:
     """Each kernel's launches in an encode of nsh shards of more than one
     tile, the blocks chosen by cost (pack_words carries the layout), and
     `adler32` Adler-32 launches (the codecs' checksum is the host's;
-    compress_distributed's one a shard on the card)."""
+    compress_distributed's one a shard on the card); no CRC-32 (the gzip
+    codec's is the host's)."""
     return {"tile_histogram": 2 * nsh, **{k: nsh for k in ENCODE_KERNELS},
             "block_plan": nsh, "huffman_codes": 2 * nsh, "block_layout": 0,
-            PACK: nsh, **{k: 0 for k in DECODE_KERNELS}, "adler32": adler32}
+            PACK: nsh, **{k: 0 for k in DECODE_KERNELS}, "adler32": adler32,
+            "crc32": 0}
 
 
-def decode_counts(n: int, adler32: int | None = None) -> dict:
+def decode_counts(n: int, adler32: int | None = None,
+                  crc32: int = 0) -> dict:
     """Each kernel's launches in n decodes (flat batches or groups), with
     `adler32` Adler-32 launches (one a decode unless given: a group of
-    decompress_indexed; a flat batch checks each shard)."""
+    decompress_indexed; a flat batch checks each shard) and `crc32`
+    CRC-32 launches (one a group of a gzip member's decode)."""
     return {"tile_histogram": 0, **{k: 0 for k in ENCODE_KERNELS},
             **{k: 0 for k in BLOCK_KERNELS}, PACK: 0,
             **{k: n for k in DECODE_KERNELS},
-            "adler32": n if adler32 is None else adler32}
+            "adler32": n if adler32 is None else adler32, "crc32": crc32}
 
 
 def zero_counts() -> None:
@@ -1751,6 +1778,7 @@ from deflate_compression_tpu_torch.ops import block_layout as BL
 from deflate_compression_tpu_torch.ops import block_plan as BP
 from deflate_compression_tpu_torch.ops import build_tables as BT
 from deflate_compression_tpu_torch.ops import copy_sources as CS
+from deflate_compression_tpu_torch.ops import crc32 as CR
 from deflate_compression_tpu_torch.ops import decode_symbols as DS
 from deflate_compression_tpu_torch.ops import find_matches as FM
 from deflate_compression_tpu_torch.ops import histogram as H
@@ -1773,7 +1801,8 @@ def _counts():
         "lut_gather": LG.lut_gather.launches,
         "build_tables": BT.build_tables.launches,
         "copy_sources": CS.resolve_bytes.launches,
-        "adler32": AD.adler32.launches}), file=sys.stderr,
+        "adler32": AD.adler32.launches,
+        "crc32": CR.crc32.launches}), file=sys.stderr,
         flush=True)
 
 
@@ -1794,6 +1823,8 @@ def cli_phase(raw: bytes, blob: bytes, stats, px: np.ndarray, dev) -> dict:
     import tempfile
 
     from deflate_compression_tpu_torch.decode.index import build_index
+    from deflate_compression_tpu_torch.format.containers import \
+        gzip_parse_header
 
     with tempfile.TemporaryDirectory() as d:
         def f(name):
@@ -1818,15 +1849,24 @@ def cli_phase(raw: bytes, blob: bytes, stats, px: np.ndarray, dev) -> dict:
                                 f("in.bin"), "-v"],
             "png": module + ["png", f("in.png"), "--raw", "-o",
                              f("png.raw")]}, 600)
+        member = gzip_member(raw)
+        Path(f("in.gz")).write_bytes(member)
+        Path(f("gz.dcx")).write_bytes(build_index(
+            member[gzip_parse_header(member):]).to_bytes())
         res.update(run_procs({"decompress --index": counted + [
             "decompress", f("cli.zz"), "--index", f("cli.dcx"), "-o",
-            f("idx.out"), "--device", dev.type]}, 600))
+            f("idx.out"), "--device", dev.type],
+            "decompress --index (gzip)": counted + [
+            "decompress", f("in.gz"), "--index", f("gz.dcx"), "-o",
+            f("gz.out"), "--device", dev.type]}, 600))
         t_all = time.perf_counter() - t0
         got = {k: Path(f(k)).read_bytes() for k in (
             "cli.zz", "cli.dcx", "cli.csv", "trace.csv", "p4.out",
-            "png.raw", "idx.out")}
+            "png.raw", "idx.out", "gz.out")}
     counts = {k: json.loads(res[k][1].rsplit("LAUNCHES ", 1)[1])
-              for k in ("compress", "trace", "decompress --index")}
+              for k in ("compress", "trace", "decompress --index",
+                        "decompress --index (gzip)")}
+    gz = counts["decompress --index (gzip)"]
     csv = stats.to_csv().encode()
     checks = [
         ("compress: phase 4's stream", got["cli.zz"] == blob),
@@ -1849,12 +1889,19 @@ def cli_phase(raw: bytes, blob: bytes, stats, px: np.ndarray, dev) -> dict:
         ("decompress --index launches",
          min(counts["decompress --index"][k] for k in DECODE_KERNELS) >= 1
          and counts["decompress --index"]["adler32"]
-         == counts["decompress --index"]["build_tables"])]
+         == counts["decompress --index"]["build_tables"]
+         and counts["decompress --index"]["crc32"] == 0),
+        ("decompress --index (gzip): a gzip -9 member", got["gz.out"] == raw),
+        ("decompress --index (gzip) launches",
+         gz == decode_counts(gz["build_tables"], adler32=0,
+                             crc32=gz["build_tables"])
+         and gz["build_tables"] >= 2)]
     bad = [name for name, ok in checks if not ok]
     if bad:
         raise AssertionError(f"CLI checks failed: {bad}; launches {counts}")
     print(f"phase 13 CLI: {len(res)} subprocesses ({t_all:.1f} s, six at "
-          f"once, then decompress --index), seconds from their start to "
+          f"once, then the two decompress --index), seconds from their "
+          f"start to "
           f"exit: {', '.join(f'{k} {v[2]:.1f}' for k, v in res.items())}; "
           f"{len(checks)} checks true "
           f"({', '.join(n for n, _ in checks)}); "
@@ -2323,6 +2370,100 @@ def adler32_phase(dev) -> dict:
           f"{'; '.join(shown)}")
     torch.cuda.synchronize()
     return {**times, "launches_per_call": per_call, "max_abs_err": err}
+
+
+def gzip_member(raw: bytes) -> bytes:
+    """`raw` as one gzip -9 member, as CPython's gzip writes a named file."""
+    import gzip
+    import io
+    buf = io.BytesIO()
+    with gzip.GzipFile(filename="corpus", mode="wb", compresslevel=9,
+                       fileobj=buf, mtime=0) as f:
+        f.write(raw)
+    return buf.getvalue()
+
+
+def crc32_phase(dev) -> dict:
+    """Phase 18: crc32_torch (the kernel) against zlib.crc32 and
+    crc32_torch_ref on the card, exactly: lengths 0 to 4 MiB + 1, all 0xFF
+    at 4 MiB, views at each byte offset of a 16-byte line, starting values
+    as ints and held on the card, lengths held on the card; one launch a
+    call; under sync debug mode "error"; its and its plain version's times
+    on 1 MiB and 4 MiB beside the bound (the bytes read once and the 8-byte
+    result, over 3.35 TB/s, warm in L2 as the decode that wrote them
+    leaves them); a gzip -9 member of phase 10's size through
+    decompress_gzip_indexed in 4 MiB groups, one launch a group."""
+    from deflate_compression_tpu_torch.core import checksum as CK
+    from deflate_compression_tpu_torch.corpus import build_corpus
+    from deflate_compression_tpu_torch.decode import index as IDX
+    from deflate_compression_tpu_torch.format.containers import \
+        gzip_parse_header
+    from deflate_compression_tpu_torch.ops import crc32 as CR
+    rng = np.random.default_rng(18)
+    data = rng.integers(0, 256, LARGE_SHARD + 64, dtype=np.uint8)
+    x = torch.from_numpy(data).to(dev)
+    ff = torch.full((LARGE_SHARD,), 0xFF, dtype=torch.uint8, device=dev)
+    cases = [(x, data, n) for n in (0, 1, 3, 4, 5, 4095, 4096, 4097, 65543,
+                                    1 << 20, (1 << 20) + 3, LARGE_SHARD,
+                                    LARGE_SHARD + 1)]
+    cases += [(x[o:], data[o:], n) for o in range(1, 16)
+              for n in (3, 17, (1 << 20) + o, LARGE_SHARD)]
+    cases.append((ff, np.full(LARGE_SHARD, 0xFF, np.uint8), LARGE_SHARD))
+    launches = CR.crc32.launches
+    err = 0
+    for k, (t, host, n) in enumerate(cases):
+        init = 0 if k % 2 else int(rng.integers(0, 2 ** 32))
+        want = zlib.crc32(host[:n].tobytes(), init)
+        got = [int(CK.crc32_torch(t, n, init)),
+               int(CK.crc32_torch(t, torch.tensor(n, device=dev),
+                                  torch.tensor(init, device=dev))),
+               int(CK.crc32_torch_ref(t, n, init))]
+        err = max(err, *(abs(g - want) for g in got[:2]))
+        if got != [want] * 3:
+            raise AssertionError(f"crc32 of {n} bytes at offset "
+                                 f"{t.data_ptr() % 16} from {init:#x}: "
+                                 f"kernel, kernel with the length and start "
+                                 f"on the card, plain {got} != zlib {want}")
+    per_call = (CR.crc32.launches - launches) / (2 * len(cases))
+    if per_call != 1:
+        raise AssertionError(f"crc32_torch launched {per_call} a call")
+    n_card = torch.tensor(LARGE_SHARD - 3, device=dev)
+    a, b = no_sync(lambda: (lambda a: (a, CK.crc32_torch(x, n_card, a)))(
+        CK.crc32_torch(x, LARGE_SHARD)))
+    whole = zlib.crc32(data[:LARGE_SHARD].tobytes())
+    if [int(a), int(b)] != [whole, zlib.crc32(
+            data[:LARGE_SHARD - 3].tobytes(), whole)]:
+        raise AssertionError("crc32 under sync debug mode differs")
+    times, shown = {}, []
+    for label, n in (("1mb", 1 << 20), ("4mb", LARGE_SHARD)):
+        t = times[label] = timings(
+            "crc32_kernel", lambda: CK.crc32_torch(x, n),
+            lambda: CK.crc32_torch_ref(x, n), 100, 20, n + 8, plain_n=0)
+        shown.append(f"{label}: {show(t)}")
+    raw = build_corpus(LARGE_CORPUS_BYTES, seed=18)
+    member = gzip_member(raw)
+    idx = IDX.build_index(member[gzip_parse_header(member):])
+    IDX.decompress_gzip_indexed(member, idx, LARGE_SHARD, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = IDX.decompress_gzip_indexed(member, idx, LARGE_SHARD, device=dev)
+    dt = time.perf_counter() - t0
+    gz = read_counts()
+    groups = gz["build_tables"]
+    if out != raw or gz != decode_counts(groups, adler32=0, crc32=groups):
+        raise AssertionError(f"decompress_gzip_indexed: bytes "
+                             f"{out == raw}, launches {gz}")
+    print(f"phase 18 crc32: tolerance 0 (exact), == zlib and plain on "
+          f"{len(cases)} cases (lengths 0 to {LARGE_SHARD + 1}, offsets "
+          f"1-15, all 0xFF), the length and start as ints and on the card; "
+          f"one launch a call; no wait under sync debug mode \"error\"; "
+          f"{'; '.join(shown)}; a {len(raw)}-byte gzip -9 member "
+          f"({len(member)} bytes, {idx.n_blocks} blocks) through "
+          f"decompress_gzip_indexed in {groups} groups of 4 MiB: "
+          f"{len(raw) / dt / 1e6:.1f} MB/s, launches {gz}")
+    torch.cuda.synchronize()
+    return {**times, "launches_per_call": per_call, "max_abs_err": err,
+            "launches_gzip": gz["crc32"]}
 
 
 def pack_phase(blk: dict, dev) -> dict:

@@ -41,7 +41,9 @@ and gzip codecs' `compress` on the card and `decompress` on the host
 (`decode/inflate.py`, the native inflater where it builds), with the
 self-check and the codec's metrics; `compress_stream` / `compress_file`
 with the encoder's index; the indexed device decoder (`decode_blocks`,
-`decode_blocks_batch`, `decompress_indexed`, `build_index`); the stream
+`decode_blocks_batch`, `decompress_indexed`, `build_index`) and a gzip
+member read through it, its CRC-32 checked on the card
+(`decompress_gzip_indexed`); the stream
 verifier (`decode/verify.py`), CRC-32 and the gzip container, the PNG
 decoder (`png/decoder.py`), the adaptive Huffman tree (`core/aht.py`) and
 the per-symbol trace (`utils/trace.py`, tokenized on the card); the
@@ -58,7 +60,8 @@ __all__ = ["CodecConfig", "DeflateError", "PngError", "DistError",
            "CompressStats", "DeflateCodec", "ZlibCodec", "GzipCodec",
            "make_codec",
            "compress_stream", "compress_file", "DecodeIndex", "build_index",
-           "index_from_shards", "decompress_indexed", "verify_stream",
+           "index_from_shards", "decompress_indexed",
+           "decompress_gzip_indexed", "verify_stream",
            "png_decode", "per_symbol_trace_csv", "compress_distributed",
            "compress_file_resumable"]
 
@@ -73,7 +76,8 @@ _HOMES = {
                      "GzipCodec", "make_codec", "compress_stream",
                      "compress_file"), "models.codec"),
     **dict.fromkeys(("DecodeIndex", "build_index", "index_from_shards",
-                     "decompress_indexed"), "decode.index"),
+                     "decompress_indexed", "decompress_gzip_indexed"),
+                    "decode.index"),
 }
 
 

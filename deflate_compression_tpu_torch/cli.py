@@ -161,18 +161,28 @@ def cmd_decompress(args) -> int:
     if args.index:
         # the indexed decoder on the card (decode/device_inflate.py); the
         # container's checksums are verified, as on the host path
-        from .decode.index import DecodeIndex, decompress_indexed
+        from .decode.index import (DecodeIndex, decompress_gzip_indexed,
+                                   decompress_indexed)
         from .utils.errors import DeflateError
         with open(args.index, "rb") as f:
             idx = DecodeIndex.from_bytes(f.read())
+        if data[:2] == C.GZIP_MAGIC and not args.no_verify:
+            # CRC-32 and ISIZE checked on the card as the groups decode
+            try:
+                out = decompress_gzip_indexed(data, idx, device=args.device)
+            except DeflateError as e:
+                if e.name in ("E_ADLER", "E_SIZE"):
+                    raise DeflateError("E_ADLER",
+                                       "gzip CRC/ISIZE mismatch") from e
+                raise
+            _write(args.output, out)
+            return 0
         body = data
         expected_adler = None
         max_dist = C.WINDOW_SIZE
-        container = "raw"
         if data[:2] == C.GZIP_MAGIC:
             from .format.containers import gzip_parse_header
             body = data[gzip_parse_header(data):]
-            container = "gzip"
         elif (data[0] & 0x0F) == 8 and ((data[0] << 8) | data[1]) % 31 == 0:
             cinfo = data[0] >> 4
             if cinfo > 7:
@@ -183,13 +193,6 @@ def cmd_decompress(args) -> int:
             body = data[2:]
         out = decompress_indexed(body, idx, expected_adler=expected_adler,
                                  max_dist=max_dist, device=args.device)
-        if container == "gzip" and not args.no_verify and len(data) >= 8:
-            from .core.checksum import crc32_np
-            want_crc = int.from_bytes(data[-8:-4], "little")
-            want_isize = int.from_bytes(data[-4:], "little")
-            if crc32_np(out) != want_crc or \
-                    (len(out) & 0xFFFFFFFF) != want_isize:
-                raise DeflateError("E_ADLER", "gzip CRC/ISIZE mismatch")
         _write(args.output, out)
         return 0
     # the host inflaters of the codecs' decompress (models/codec.py)

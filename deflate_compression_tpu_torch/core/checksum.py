@@ -2,8 +2,10 @@
 module imports JAX): Adler-32 for the zlib footer (`adler32_np` on the host,
 `adler32_torch` on a tensor's device, by the hand kernel of `ops/adler32.py`
 on a CUDA card, `adler32_combine`) and CRC-32 for gzip and PNG (`crc32_np`,
-`crc32_combine`, `crc32_combine_raw`: host numpy, a copy of the JAX
-package's, which has no device CRC either).
+`crc32_combine`, `crc32_combine_raw` on the host, with the JAX package's
+results; `crc32_torch` on a tensor's device, by the hand kernel of
+`ops/crc32.py` on a CUDA card, which the JAX package has no counterpart of).
+The host combines multiply by x^(8n) mod p(x) as zlib does (`x8nmodp`).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.adler32 import adler32 as adler32_kernel
+from ..ops.crc32 import crc32 as crc32_kernel
 from ..utils.logging_util import spanned
 
 ADLER_MOD = 65521
@@ -93,12 +96,15 @@ def adler32_combine(ad1: int, ad2: int, len2: int) -> int:
 # CRC-32 (reflected, poly 0xEDB88320)
 # ---------------------------------------------------------------------------
 
+CRC_POLY = 0xEDB88320
+
+
 def _crc_table() -> np.ndarray:
     t = np.zeros(256, dtype=np.uint32)
     for i in range(256):
         c = np.uint32(i)
         for _ in range(8):
-            c = (c >> np.uint32(1)) ^ (np.uint32(0xEDB88320) * (c & np.uint32(1)))
+            c = (c >> np.uint32(1)) ^ (np.uint32(CRC_POLY) * (c & np.uint32(1)))
         t[i] = c
     return t
 
@@ -114,59 +120,54 @@ def _crc32_serial(data: np.ndarray, crc: int) -> int:
     return int(c)
 
 
-def _gf2_matrix_times(mat: np.ndarray, vec: int) -> int:
-    s = 0
-    i = 0
-    while vec:
-        if vec & 1:
-            s ^= int(mat[i])
-        vec >>= 1
-        i += 1
-    return s
+def multmodp(a: int, b: int) -> int:
+    """a(x) b(x) mod p(x) for two reflected CRC-32 polynomials (bit 31 is
+    x^0, bit 0 x^31): zlib's multmodp, one step a bit of `a`."""
+    p = 0
+    for i in range(31, -1, -1):
+        if a >> i & 1:
+            p ^= b
+        b = (b >> 1) ^ CRC_POLY if b & 1 else b >> 1
+    return p
 
 
-def _gf2_matrix_square(mat: np.ndarray) -> np.ndarray:
-    return np.array([_gf2_matrix_times(mat, int(m)) for m in mat],
-                    dtype=np.uint64)
+def _x2n_table() -> tuple:
+    """x^(2^k) mod p(x), reflected, k = 0..63."""
+    t = [1 << 30]                                 # x^1
+    for _ in range(63):
+        t.append(multmodp(t[-1], t[-1]))
+    return tuple(t)
 
 
-def _one_bit_shift() -> np.ndarray:
-    """The GF(2) matrix that shifts a raw CRC register by one zero bit."""
-    odd = np.zeros(32, dtype=np.uint64)
-    odd[0] = 0xEDB88320
-    row = 1
-    for n in range(1, 32):
-        odd[n] = row
-        row <<= 1
-    return odd
+X2N = _x2n_table()
+
+
+@functools.lru_cache(maxsize=256)
+def x8nmodp(n: int) -> int:
+    """x^(8n) mod p(x), reflected: what appending n zero bytes multiplies a
+    raw CRC register by (zlib's x2nmodp(n, 3))."""
+    p, k = 1 << 31, 3                             # x^0
+    while n:
+        if n & 1:
+            p = multmodp(X2N[k], p)
+        n >>= 1
+        k += 1
+    return p
 
 
 def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
-    """CRC of concat(A, B) from crc(A), crc(B), len(B) (zlib algorithm)."""
+    """CRC of concat(A, B) from crc(A), crc(B), len(B): crc(A) times
+    x^(8 len(B)) mod p(x), xor crc(B) (zlib's crc32_combine)."""
     if len2 == 0:
         return crc1
-    even = _gf2_matrix_square(_one_bit_shift())
-    odd = _gf2_matrix_square(even)
-    while True:
-        even = _gf2_matrix_square(odd)
-        if len2 & 1:
-            crc1 = _gf2_matrix_times(even, crc1)
-        len2 >>= 1
-        if len2 == 0:
-            break
-        odd = _gf2_matrix_square(even)
-        if len2 & 1:
-            crc1 = _gf2_matrix_times(odd, crc1)
-        len2 >>= 1
-        if len2 == 0:
-            break
-    return (crc1 ^ crc2) & 0xFFFFFFFF
+    return (multmodp(x8nmodp(len2), crc1) ^ crc2) & 0xFFFFFFFF
 
 
 def crc32_np(data, crc: int = 0) -> int:
     """CRC-32, numpy lane-parallel: the byte-serial recurrence runs across
     256 lanes at once (one table gather per byte position), then the lane
-    CRCs combine with the GF(2) shift matrices."""
+    CRCs combine, each shifted by the lanes after it (x^(8 chunk) mod
+    p(x))."""
     data = np.frombuffer(data, dtype=np.uint8) if isinstance(
         data, (bytes, bytearray, memoryview)) else np.asarray(data, np.uint8)
     n = data.size
@@ -183,34 +184,81 @@ def crc32_np(data, crc: int = 0) -> int:
     for j in range(chunk):
         c = t[(c ^ body[:, j]) & 0xFF] ^ (c >> np.uint32(8))
     acc = int(c[0])
+    op = x8nmodp(chunk)
     for lane in range(1, lanes):
         # shift acc forward by `chunk` bytes, xor the lane's crc
-        acc = crc32_combine_raw(acc, int(c[lane]), chunk)
+        acc = multmodp(op, acc) ^ int(c[lane])
     acc = _crc32_serial(data[lanes * chunk:], acc)
     return acc ^ 0xFFFFFFFF
-
-
-@functools.lru_cache(maxsize=64)
-def _shift_matrix(len2: int) -> tuple:
-    """The matrix (32 ints) that appends len2 zero bytes to a raw CRC
-    register, by repeated squaring over the 8 * len2 bits."""
-    nbits = 8 * len2
-    result = None
-    cur = _one_bit_shift()
-    while nbits:
-        if nbits & 1:
-            result = cur if result is None else np.array(
-                [_gf2_matrix_times(cur, int(m)) for m in result],
-                dtype=np.uint64)
-        cur = _gf2_matrix_square(cur)
-        nbits >>= 1
-    return tuple(int(x) for x in result)
 
 
 def crc32_combine_raw(crc1_raw: int, crc2_raw: int, len2: int) -> int:
     """Combine raw registers (pre/post-conditioning applied consistently):
     shift crc1 by len2 zero bytes and xor crc2."""
-    if len2 == 0:
-        return crc1_raw ^ crc2_raw
-    mat = np.array(_shift_matrix(len2), dtype=np.uint64)
-    return _gf2_matrix_times(mat, crc1_raw) ^ crc2_raw
+    return multmodp(x8nmodp(len2), crc1_raw) ^ crc2_raw
+
+
+# lanes of crc32_torch_ref: at most this many bytes a lane
+_REF_STEPS = 2048
+
+
+def _mulmod_t(a: torch.Tensor, b: int) -> torch.Tensor:
+    """multmodp of each element of `a` (int64 holding u32) by `b`."""
+    p = torch.zeros_like(a)
+    for i in range(31, -1, -1):
+        if b >> i & 1:
+            p ^= a
+        a = (a >> 1) ^ torch.where(a & 1 == 1, CRC_POLY, 0)
+    return p
+
+
+def crc32_torch_ref(data: torch.Tensor, valid_len, init=None) -> torch.Tensor:
+    """Plain version of `crc32_torch`: what it runs for a CPU tensor, and
+    the reference its kernel is held against on the card.
+
+    The raw register (crc ^ 0xFFFFFFFF) is linear in the bytes, and feeding
+    it in is the same as xoring it into the first four: so ~init goes into
+    data[:4] (what stays of it when there are fewer bytes is shifted out at
+    the end), the bytes are cut into a power-of-two number of equal lanes
+    (zeros in front, which leave a register at 0 unchanged), each lane runs
+    zlib's byte table recurrence, all lanes at once, and pairs of
+    neighbouring lanes merge, the left one multiplied by x^(8 w) mod p(x)
+    for the right one's w bytes, until one is left."""
+    n = int(valid_len)
+    if not 0 <= n <= data.shape[0]:
+        raise ValueError(f"valid_len {n} outside [0, {data.shape[0]}]")
+    r0 = (int(0 if init is None else init) ^ 0xFFFFFFFF) & 0xFFFFFFFF
+    lanes = 1 << max(0, -(-n // _REF_STEPS) - 1).bit_length()
+    w = max(1, -(-n // lanes))
+    d = torch.zeros(lanes * w, dtype=torch.int64, device=data.device)
+    d[lanes * w - n:] = data[:n].to(torch.int64)
+    k = min(n, 4)
+    d[lanes * w - n:lanes * w - n + k] ^= torch.tensor(
+        [(r0 >> (8 * j)) & 0xFF for j in range(k)], dtype=torch.int64,
+        device=data.device)
+    rows = d.view(lanes, w)
+    table = torch.from_numpy(CRC_TABLE.astype(np.int64)).to(data.device)
+    r = torch.zeros(lanes, dtype=torch.int64, device=data.device)
+    for j in range(w):
+        r = table[(r ^ rows[:, j]) & 0xFF] ^ (r >> 8)
+    while r.shape[0] > 1:
+        r = _mulmod_t(r[0::2], x8nmodp(w)) ^ r[1::2]
+        w *= 2
+    total = int(r[0]) ^ (r0 >> (8 * n) if n < 4 else 0)
+    return torch.tensor(total ^ 0xFFFFFFFF, dtype=torch.int64,
+                        device=data.device)
+
+
+@spanned("checksum.crc32")
+def crc32_torch(data: torch.Tensor, valid_len, init=None) -> torch.Tensor:
+    """CRC-32 of data[:valid_len] (u8[S] tensor), continued from `init` (0
+    where None: an int, or a one-element integer tensor on data's device),
+    as an int64 0-d tensor on data's device: zlib.crc32(data[:valid_len],
+    init). A CUDA tensor goes through the hand kernel (`ops/crc32.py`: one
+    launch, no copy from the host, no wait for the card; valid_len and init
+    may be held on the card) or this raises; a CPU tensor through
+    `crc32_torch_ref`. `ops.crc32.crc32.launches` counts the kernel's
+    launches."""
+    if data.device.type == "cpu":
+        return crc32_torch_ref(data, valid_len, init)
+    return crc32_kernel(data, valid_len, 0 if init is None else init)

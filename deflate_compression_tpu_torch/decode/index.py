@@ -24,10 +24,12 @@ import numpy as np
 import torch
 
 from .. import native_bridge
+from ..core import checksum
 from ..core.bits import BitReader
 from ..core.checksum import adler32_combine, adler32_torch
 from ..device import pick_device
 from ..format import constants as C
+from ..format.containers import gzip_parse_header
 from ..utils.errors import DeflateError
 from ..utils.logging_util import span, spanned
 from .inflate import _FIXED_D_LUT, _FIXED_LL_LUT, _read_dynamic_tables
@@ -239,7 +241,9 @@ def index_from_shards(shard_results, shard_comp_bits, shard_out_lens,
 def decompress_indexed(stream: bytes, index: DecodeIndex,
                        shard_out: int = 1 << 20,
                        expected_adler: int | None = None,
-                       max_dist: int = C.WINDOW_SIZE, device=None) -> bytes:
+                       max_dist: int = C.WINDOW_SIZE, device=None,
+                       expected_crc32: int | None = None,
+                       expected_isize: int | None = None) -> bytes:
     """Decode a raw DEFLATE stream with the device decoder, in groups of
     whole blocks of about `shard_out` output bytes. The previous group's
     last 32 KB rides along as window context, so distances may cross
@@ -247,13 +251,18 @@ def decompress_indexed(stream: bytes, index: DecodeIndex,
 
     `expected_adler` (the zlib footer) is checked over the decoded bytes,
     each group's Adler-32 taken on the device and combined on the host;
-    `max_dist` bounds distances to the container's declared window. Raises
-    DeflateError when a group decodes not ok or the checksum differs. Runs
-    on `device` (the CUDA card unless "cpu" is asked for).
+    `expected_crc32` and `expected_isize` (a gzip footer) likewise, the
+    CRC-32 chained from group to group on the device and read once after
+    the last, the size against the bytes decoded mod 2^32. `max_dist`
+    bounds distances to the container's declared window. Raises
+    DeflateError when a group decodes not ok or a check fails (E_ADLER for
+    either checksum, E_SIZE for ISIZE). Runs on `device` (the CUDA card
+    unless "cpu" is asked for).
 
     `decompress_indexed.upload_bytes` counts the bytes of the host arrays
-    each group hands to the device (the rest of the stream and the
-    group's index arrays)."""
+    each group hands to the device (the group's bytes of the stream,
+    from the word holding its first block's header to its last block's
+    end, and the group's index arrays)."""
     from .device_inflate import decode_blocks
 
     dev = pick_device(device)
@@ -261,10 +270,17 @@ def decompress_indexed(stream: bytes, index: DecodeIndex,
     W = C.WINDOW_SIZE
     n = index.n_blocks
     have_subs = index.n_subs > 0
-    out_parts = []
+    # the output and each group's bytes of the stream live in page-locked
+    # host memory on a card (torch's caching host allocator keeps the
+    # blocks): the copies run by DMA, with no staging copy on the host
+    pin = dev.type == "cuda"
+    base = int(index.out_start[0]) if n else 0
+    host = torch.empty(index.out_len - base if n else 0, dtype=torch.uint8,
+                       pin_memory=pin)
     prev_tail = torch.zeros(W, dtype=torch.uint8, device=dev)
     plen = 0
     adler = 1
+    crc = 0
     i = 0
     while i < n:
         with span("index.group"):
@@ -296,11 +312,20 @@ def decompress_indexed(stream: bytes, index: DecodeIndex,
                               np.arange(nb), -1)
             S = max(plen + span_out, 1)
         with span("index.upload"):
-            rest = bytearray(stream[first_byte:])
-            rest += b"\x00" * 3
-            comp_words = np.frombuffer(rest, np.int32, len(rest) // 4)
-            words = torch.from_numpy(comp_words).to(dev)
-        _counted.upload_bytes += comp_words.nbytes + sum(
+            # the group's own bytes: its last block ends where block j
+            # starts (a read past them finds zeros, and no token does)
+            end_byte = len(stream) if j == n else \
+                min(len(stream), -(-int(index.bit_base[j]) // 8))
+            nbytes = max(0, end_byte - first_byte)
+            part = torch.empty(-(-nbytes // 4) * 4, dtype=torch.uint8,
+                               pin_memory=pin)
+            host_part = part.numpy()
+            if nbytes:
+                host_part[:nbytes] = np.frombuffer(stream, np.uint8, nbytes,
+                                                   first_byte)
+            host_part[nbytes:] = 0
+            words = part.view(torch.int32).to(dev, non_blocking=True)
+        _counted.upload_bytes += part.numel() + sum(
             a.nbytes for a in (bb, os_, bt, sb, so, sk))
         res = decode_blocks(
             words, bb, os_, bt, nb, sb, so, sk, ns, plen + span_out, S,
@@ -315,8 +340,11 @@ def decompress_indexed(stream: bytes, index: DecodeIndex,
             with span("index.adler32"):
                 adler = adler32_combine(
                     adler, int(adler32_torch(new, span_out)), span_out)
+        if expected_crc32 is not None:
+            with span("index.crc32"):
+                crc = checksum.crc32_torch(new, span_out, init=crc)
         with span("index.copy_back"):
-            out_parts.append(new.cpu().numpy().tobytes())
+            host[start - base:end_out - base].copy_(new, non_blocking=True)
         with span("index.window"):
             tail = full[max(0, plen + span_out - W):]
             prev_tail = torch.zeros(W, dtype=torch.uint8, device=dev)
@@ -328,10 +356,39 @@ def decompress_indexed(stream: bytes, index: DecodeIndex,
                 adler != (expected_adler & 0xFFFFFFFF):
             raise DeflateError(
                 "E_ADLER", f"adler mismatch {expected_adler:#x} != {adler:#x}")
-        return b"".join(out_parts)
+        if expected_crc32 is not None:
+            crc = int(crc)
+            if crc != expected_crc32 & 0xFFFFFFFF:
+                raise DeflateError("E_ADLER", f"gzip crc mismatch "
+                                   f"{expected_crc32:#x} != {crc:#x}")
+        if pin:
+            torch.cuda.current_stream(dev).synchronize()
+        out = host.numpy().tobytes()
+        if expected_isize is not None and \
+                (len(out) & 0xFFFFFFFF) != expected_isize & 0xFFFFFFFF:
+            raise DeflateError("E_SIZE", f"gzip ISIZE mismatch "
+                               f"{expected_isize} != {len(out)} mod 2^32")
+        return out
 
 
 decompress_indexed.upload_bytes = 0
 # the counter stays on the function defined here, bumped through this name,
 # whatever later rebinds `decompress_indexed` (a wrapper, a test's fake)
 _counted = decompress_indexed
+
+
+@spanned("index.gzip")
+def decompress_gzip_indexed(member: bytes, index: DecodeIndex,
+                            shard_out: int = 1 << 20, device=None) -> bytes:
+    """Decode one gzip member (RFC 1952) with the device decoder: the header
+    parsed (FEXTRA, FNAME, FCOMMENT, FHCRC), the body decoded by
+    `decompress_indexed` with `index` (over the body, from the byte after
+    the header), and the footer's CRC-32 and ISIZE, its last 8 bytes,
+    checked on the device as the groups decode."""
+    off = gzip_parse_header(member)
+    if len(member) < off + 8:
+        raise DeflateError("E_TRUNC", "missing gzip footer")
+    return decompress_indexed(
+        memoryview(member)[off:], index, shard_out, device=device,
+        expected_crc32=int.from_bytes(member[-8:-4], "little"),
+        expected_isize=int.from_bytes(member[-4:], "little"))

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import operator
 
 import torch
 
@@ -57,26 +56,6 @@ def grid(bound: int, head: int, target: int) -> tuple[int, int]:
     return vec, max(1, -(-span // (row * vec)))
 
 
-def _length(valid_len, data: torch.Tensor):
-    """(n, n as an int64 tensor on the card, or None) of `valid_len`: a
-    one-element integer tensor on data's device stays there; anything else
-    is an int in [0, len(data)]."""
-    size = data.shape[0]
-    if isinstance(valid_len, torch.Tensor) and valid_len.device.type != "cpu":
-        if valid_len.device != data.device or valid_len.numel() != 1:
-            raise ValueError(f"valid_len on {valid_len.device} must be one "
-                             f"element on data's device {data.device}")
-        if valid_len.is_floating_point() or valid_len.is_complex() \
-                or valid_len.dtype == torch.bool:
-            raise TypeError(f"valid_len must be an integer, got "
-                            f"{valid_len.dtype}")
-        return -1, valid_len.reshape(()).to(torch.int64)
-    n = operator.index(valid_len)
-    if not 0 <= n <= size:
-        raise ValueError(f"valid_len {n} outside [0, {size}]")
-    return n, None
-
-
 def adler32(data: torch.Tensor, valid_len) -> torch.Tensor:
     """Adler-32 of data[:valid_len] as an int64 0-d tensor on data's device,
     by one launch of the kernel. data: a 1-D contiguous uint8 tensor on a
@@ -89,7 +68,7 @@ def adler32(data: torch.Tensor, valid_len) -> torch.Tensor:
     if data.dim() != 1 or not data.is_contiguous():
         raise ValueError(f"data must be 1-D and contiguous, got shape "
                          f"{tuple(data.shape)}, strides {data.stride()}")
-    n, n_dev = _length(valid_len, data)
+    n, n_dev = cuda_build.valid_length(valid_len, data)
     dev = data.device
     if dev.type != "cuda":
         raise ValueError(f"the Adler-32 kernel runs on CUDA tensors, not on "

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import re
 import shutil
@@ -115,6 +116,34 @@ def ticket(dev: torch.device, stream: int) -> torch.Tensor:
         t = _tickets[dev.index, stream] = torch.zeros(
             1, dtype=torch.int32, device=dev)
     return t
+
+
+def card_scalar(x, data: torch.Tensor, what: str):
+    """`x` as an int64 0-d tensor where it is a one-element integer tensor
+    on a card, which must be data's, for a kernel to read there; None where
+    it is no tensor on a card."""
+    if not isinstance(x, torch.Tensor) or x.device.type == "cpu":
+        return None
+    if x.device != data.device or x.numel() != 1:
+        raise ValueError(f"{what} on {x.device} must be one element on "
+                         f"data's device {data.device}")
+    if x.is_floating_point() or x.is_complex() or x.dtype == torch.bool:
+        raise TypeError(f"{what} must be an integer, got {x.dtype}")
+    return x.reshape(()).to(torch.int64)
+
+
+def valid_length(valid_len, data: torch.Tensor):
+    """(n, n as an int64 tensor on the card, or None) of `valid_len`: a
+    one-element integer tensor on data's device stays there (n is then
+    -1); anything else is an int in [0, len(data)]."""
+    n_dev = card_scalar(valid_len, data, "valid_len")
+    if n_dev is not None:
+        return -1, n_dev
+    size = data.shape[0]
+    n = operator.index(valid_len)
+    if not 0 <= n <= size:
+        raise ValueError(f"valid_len {n} outside [0, {size}]")
+    return n, None
 
 
 def load(source: Path, functions: dict) -> ctypes.CDLL:
